@@ -1,0 +1,210 @@
+"""Training loop with FastPersist checkpointing as a first-class feature
+(the counterpart of ``repro.train.trainer``), driven through the unified
+:class:`repro_torch.core.engine.CheckpointEngine`:
+
+  baseline               : train step → rank-0 synchronous torch.save-style
+                           write (completed SaveHandle)
+  fastpersist            : train step → parallel NVMe write (completed
+                           SaveHandle)
+  fastpersist-pipelined  : the write overlaps the next iteration; before
+                           the next step updates the state IN PLACE the
+                           trainer waits for the previous save's
+                           device→host SNAPSHOT (engine.wait_snapshot).
+
+The trainer runs on ``device`` ("cuda" by default) and raises when that
+device is unavailable; only a caller that asks for "cpu" gets the CPU.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.checkpointer import FastPersistConfig
+from repro_torch.core.engine import CheckpointEngine, CheckpointSpec
+from repro_torch.data.pipeline import DataConfig, TokenStream
+from repro_torch.models.registry import build_model
+from repro_torch.optim.adam import AdamConfig
+from repro_torch.train.steps import (TrainState, init_train_state,
+                                     make_train_step)
+from repro_torch.tree import tree_map
+
+
+@dataclass
+class CheckpointPolicy:
+    directory: str
+    every: int = 1                     # paper: per-iteration
+    mode: str = "fastpersist"          # fastpersist | baseline | none
+    pipeline: bool = True
+    backend: Optional[str] = None      # explicit engine backend name;
+    #                                    overrides mode/pipeline when set
+    fp: FastPersistConfig = field(default_factory=FastPersistConfig)
+    #: step retention (the reference's RetentionPolicy): not ported yet,
+    #: ROADMAP.md queue A item 5 — setting it raises
+    retention: Optional[object] = None
+    #: shard destination volume roots (one per SSD/mount); None = all
+    #: shards under ``directory``
+    volumes: Optional[list] = None
+    #: parallel-restore reader workers for ``Trainer.restore()``:
+    #: "auto" sizes to the saved shard count (capped by CPUs), an int
+    #: forces that many, None keeps the single-reader load
+    restore_readers: Optional[object] = "auto"
+    #: durability tiers of the reference (object store, peers, serving
+    #: cache): not ported yet, the engine raises when one is set
+    upload: Optional[object] = None
+    replicate_peers: Optional[list] = None
+    serve_cache_mb: int = 0
+    #: incremental delta checkpoints (DESIGN.md §9): every Nth save is a
+    #: full keyframe; copied into ``fp.keyframe_every`` unless the
+    #: FastPersistConfig already sets it
+    keyframe_every: int = 1
+
+    def __post_init__(self):
+        if self.retention is not None:
+            raise NotImplementedError(
+                "checkpoint retention is not ported yet: ROADMAP.md queue "
+                "A item 5")
+        if self.keyframe_every > 1 and self.fp.keyframe_every == 1:
+            self.fp = dataclasses.replace(self.fp,
+                                          keyframe_every=self.keyframe_every)
+
+    def backend_name(self) -> str:
+        """Map the (legacy) mode/pipeline pair onto a registry key."""
+        if self.backend is not None:
+            return self.backend
+        if self.mode == "fastpersist":
+            if self.upload is not None:
+                return ("fastpersist-tiered-pipelined" if self.pipeline
+                        else "fastpersist-tiered")
+            return "fastpersist-pipelined" if self.pipeline else "fastpersist"
+        return self.mode
+
+
+@dataclass
+class TrainerConfig:
+    model: ModelConfig
+    steps: int = 100
+    global_batch: int = 8
+    seq_len: int = 128
+    gas: int = 1
+    seed: int = 0
+    opt: AdamConfig = field(default_factory=AdamConfig)
+    checkpoint: Optional[CheckpointPolicy] = None
+    log_every: int = 10
+
+
+def resolve_device(device) -> torch.device:
+    """The trainer's device; raises when CUDA is asked for and missing
+    (never a silent fallback to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device 'cuda' requested but torch.cuda.is_available() is "
+            "false; pass device='cpu' to run on the CPU")
+    return dev
+
+
+class Trainer:
+    def __init__(self, cfg: TrainerConfig, device="cuda"):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.model = build_model(cfg.model)
+        self.data = TokenStream(DataConfig(cfg.model.vocab_size,
+                                           cfg.seq_len, cfg.global_batch,
+                                           cfg.seed), device=self.device)
+        self.train_step = make_train_step(self.model, cfg.opt, cfg.gas)
+        self.state: Optional[TrainState] = None
+        self.engine: Optional[CheckpointEngine] = None
+        self.iter_times = []
+        self.ckpt_stall = 0.0
+        #: SaveHandle of every save this trainer submitted, in order
+        self.saves = []
+        if cfg.checkpoint and cfg.checkpoint.backend_name() != "none":
+            pol = cfg.checkpoint
+            self.engine = CheckpointEngine(CheckpointSpec(
+                directory=pol.directory, backend=pol.backend_name(),
+                fp=pol.fp, volumes=pol.volumes, upload_store=pol.upload,
+                peers=pol.replicate_peers,
+                serve_cache_mb=pol.serve_cache_mb))
+
+    # ------------------------------------------------------------ state
+    def init_state(self, seed: Optional[int] = None):
+        seed = self.cfg.seed if seed is None else seed
+        self.state = init_train_state(self.model, seed, self.device)
+        if self.engine is not None:
+            # fresh state object: the arena's cached layout (and device
+            # baseline) belong to the old one
+            self.engine.invalidate_arena()
+        return self.state
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def restore(self, step: Optional[int] = None) -> int:
+        """Resume from the most recent committed checkpoint (any backend,
+        either package) through the parallel restore pipeline
+        (``restore_readers``). Returns the step; 0 when there is none."""
+        assert self.engine is not None, "no checkpoint engine configured"
+        step = step if step is not None else self.engine.latest_step()
+        if step is None:
+            return 0
+        # the structure to rebuild, without storage
+        like = init_train_state(self.model, self.cfg.seed, "meta")
+        readers = (self.cfg.checkpoint.restore_readers
+                   if self.cfg.checkpoint else None)
+        restored, manifest = self.engine.load(step, like=like,
+                                              parallel=readers)
+        # COPY: the tensors are views into the engine's read arena, which
+        # the next load refills — the state must own its storage (§7)
+        self.state = tree_map(lambda t: t.to(self.device, copy=True),
+                              restored)
+        self.engine.invalidate_arena()
+        extras = manifest.extras
+        if "data" in extras:
+            self.data = TokenStream.from_state(self.data.cfg, extras["data"],
+                                               device=self.device)
+        return int(extras.get("step", step))
+
+    # ------------------------------------------------------------- loop
+    def _save(self, step: int):
+        extras = {"step": step, "data": self.data.state()}
+        self.saves.append(self.engine.save(self.state, step, extras))
+
+    def run(self, start_step: int = 0):
+        if self.state is None:
+            self.init_state()
+        pol = self.cfg.checkpoint
+        metrics = {}
+        for step in range(start_step, self.cfg.steps):
+            t0 = time.perf_counter()
+            batch = next(self.data)
+            if self.engine is not None and self.engine.async_save:
+                # §4.3 sync point: the previous checkpoint's device→host
+                # SNAPSHOT must land before this step updates the state
+                # in place; the writes keep overlapping the step, and the
+                # engine's submit throttle + drain() stay the durability
+                # sync points
+                t_w = time.perf_counter()
+                self.engine.wait_snapshot()
+                self.ckpt_stall += time.perf_counter() - t_w
+            self.state, metrics = self.train_step(self.state, batch)
+            self._sync()
+            if pol and self.engine is not None \
+                    and (step + 1) % pol.every == 0:
+                self._save(step + 1)
+            self.iter_times.append(time.perf_counter() - t0)
+            if (step + 1) % self.cfg.log_every == 0:
+                print(f"step {step+1}: loss={float(metrics['loss']):.4f} "
+                      f"it={np.mean(self.iter_times[-self.cfg.log_every:])*1e3:.1f}ms")
+        if self.engine is not None:
+            t_w = time.perf_counter()
+            self.engine.drain()     # commit stragglers, park the worker
+            self.ckpt_stall += time.perf_counter() - t_w
+        self._sync()
+        return self.state, metrics

@@ -1,0 +1,63 @@
+"""The port imports neither JAX, nor the JAX package, nor ml_dtypes, and
+``chip_smoke.py`` refuses to run (and prints no result) without a CUDA
+card or without the rest of the repository. Checked in subprocesses:
+this test process has JAX loaded by conftest."""
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
+
+
+def _run(code_or_args, cwd=ROOT, env_extra=None):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    env.update(env_extra or {})
+    args = ([sys.executable, "-c", code_or_args]
+            if isinstance(code_or_args, str) else
+            [sys.executable, *code_or_args])
+    return subprocess.run(args, cwd=cwd, env=env, capture_output=True,
+                          text=True, timeout=300)
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    code = f"""
+import importlib, pkgutil, runpy, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+sys.argv = ["chip_smoke.py", "--help"]
+try:
+    runpy.run_path("chip_smoke.py", run_name="__main__")
+except SystemExit as e:
+    assert e.code in (0, None), e.code
+import chip_smoke
+bad = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r})
+assert not bad, bad
+print("imported", len(names), "modules")
+"""
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert "imported" in out.stdout
+    n = int(out.stdout.split("imported")[1].split()[0])
+    assert n >= 20          # every module of the slice was imported
+
+
+def test_chip_smoke_fails_without_cuda():
+    out = _run(["chip_smoke.py"], env_extra={"CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout
+    assert "torch.cuda.is_available() is false" in out.stderr
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    out = _run(["chip_smoke.py"], cwd=tmp_path,
+               env_extra={"PYTHONPATH": ""})
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
