@@ -6,19 +6,34 @@
 Phases, each of which exits non-zero on failure:
 
 1. the card: name and power limit (``nvidia-smi``);
-2. build: compile the ckpt_pack CUDA kernels from ``src/repro_torch``;
-3. kernels: every kernel held bit-exact against its plain PyTorch version
-   on the card, at the shapes of the main path plus ragged, NaN, ±0.0,
-   all-clean and one-dirty cases; CUDA-event times beside the bytes bound;
+2. build: compile the three CUDA sources of ``src/repro_torch`` (one
+   ``nvcc`` each, in parallel);
+3. kernels: every kernel held against its plain PyTorch version on the
+   card — ckpt_pack bit-exact at the shapes of the main path plus ragged,
+   NaN, ±0.0, all-clean and one-dirty cases; flash_attention and
+   ssd_intra_chunk within the reference's tolerances at the paths'
+   shapes and the reference's sweep — with CUDA-event times beside the
+   bound, the plain version and the library call where there is one;
 4. main path: ``repro_torch`` Trainer on ``stablelm_1_6b`` at full width
    on ``cuda``, checkpointing every step (fastpersist-pipelined,
    keyframe_every=2, device-dirty), with the kernels' launch counts
    read around it;
 5. restore: a fresh Trainer restores the latest step bit-equal to the
-   live state and data position.
+   live state and data position;
+6. scoring: each layer's bf16 attention output held against the plain
+   version on the q, k, v of the restored model's forward; then the
+   restored state scored with ``build_model(use_kernels=True)`` on the
+   trainer's next batch, bf16 on the bf16 params and f32 on the master
+   weights, against the same forward through the plain attention;
+   flash_attention launch counts read around it;
+7. mamba2_370m at full width: init from a seed, a checkpoint round trip
+   through the engine, the kernel forward at batch 4 x 2048 against the
+   plain hook (ssd_intra_chunk launch counts read around it), and a
+   batch-4 x 512 prefill + 16 greedy decode steps against the forward.
 
-The last two lines of standard output are one JSON object of per-kernel
-numbers and one JSON object naming the device.
+The last three lines of standard output are one JSON object of
+per-kernel numbers, the card's name and power limit, and one JSON
+object naming the device.
 """
 from __future__ import annotations
 
@@ -35,13 +50,33 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-#: H100 SXM device-memory rate (NVIDIA data sheet), for the bytes bound
+#: H100 SXM peaks (NVIDIA data sheet), for the bounds: device-memory
+#: rate, dense bf16 tensor-core rate, f32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/ckpt_pack.cu"
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
+#: the fastest route to products of f32 accuracy: each f32 product split
+#: into three bf16 tensor-core products (hi·hi + hi·lo + lo·hi)
+F32_SPLIT_FLOPS = BF16_FLOPS / 3
+CSRC = "src/repro_torch/kernels/csrc"
 #: layers/mlp/wi of stablelm_1_6b: the largest bf16 record of the main path
 BIG = (24, 2048, 5632)
 #: main path: steps (1 keyframe + 1 delta save), global batch, sequence
 STEPS, BATCH, SEQ = 2, 4, 512
+#: attention of stablelm_1_6b on the main path's batch: (B, H, L, hd)
+ATTN = (BATCH, 32, SEQ, 64)
+#: mamba2_370m: batch x sequence of the forward, prompt and new tokens
+#: of the decode check, and ssd_intra_chunk's (b, nc, cl, h, p, n) there
+M_BATCH, M_SEQ, M_PROMPT, M_NEW = 4, 2048, 512, 16
+SSD = (M_BATCH, M_SEQ // 256, 256, 32, 64, 128)
+#: tolerances (with their reasons at the checks): the reference's kernel
+#: tolerances (tests/test_kernels.py), its model-level one
+#: (tests/test_use_pallas.py) and its decode one (tests/test_archs.py)
+TOL_ATTN_F32, TOL_ATTN_VARIANT, TOL_ATTN_BF16 = 2e-5, 3e-5, 2e-2
+TOL_SSD, TOL_MODEL, TOL_DECODE = 1e-4, 1e-3, 2e-3
+#: bf16 scoring: each layer's attention output at the kernel tolerance,
+#: the loss within 1e-3 relative (see score_restored)
+TOL_LOSS_BF16 = 1e-3
 
 
 def fail(msg: str):
@@ -98,6 +133,47 @@ def _compare(name, got, want, *, bits: bool):
         if fin.any():
             err = max(err, float((k[fin] - p[fin]).abs().max()))
     return err
+
+
+def _bound(n_bytes: float, ops_seconds: float):
+    """(bound ms, what bounds it): the larger of the bytes over the
+    memory rate and the operations' seconds at the peak rates for their
+    types."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops_seconds * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _zero_counts():
+    """Every kernel's launch count to 0, just before a path is driven."""
+    from repro_torch.kernels import ckpt_pack as cp
+    from repro_torch.kernels import ops
+    for w in (cp.ckpt_pack_blocks, cp.ckpt_pack_dirty_blocks,
+              ops.flash_attention, ops.ssd_intra_chunk):
+        w.launches = 0
+
+
+def _close(name, got, want, tol, rtol=None, quiet=False):
+    """Fail unless |got - want| <= tol + rtol·|want| everywhere (rtol
+    defaults to tol) and both are finite; returns the largest absolute
+    difference (printed unless ``quiet``)."""
+    import torch
+    got, want = got.float(), want.float()
+    if got.shape != want.shape:
+        fail(f"{name}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        fail(f"{name}: non-finite values")
+    rtol = tol if rtol is None else rtol
+    err = (got - want).abs()
+    bad = int((err > tol + rtol * want.abs()).sum())
+    worst = float(err.max())
+    if bad:
+        fail(f"{name}: {bad} elements beyond tolerance {tol} (rtol {rtol};"
+             f" max abs err {worst})")
+    if not quiet:
+        print(f"  ok {name}: tol {tol} (rtol {rtol}), max_abs_err {worst}",
+              flush=True)
+    return worst
 
 
 def _cuda_ms(fn, iters: int = 10) -> float:
@@ -243,7 +319,7 @@ def check_kernels(device) -> list:
     b2_plain = _cuda_ms(lambda: ckpt_pack_plain(x2d_p))
     entries = [
         {"name": "ckpt_pack_dirty_blocks", "route": "cuda",
-         "source": KERNEL_SOURCE,
+         "source": f"{CSRC}/ckpt_pack.cu",
          "replaces": "src/repro/kernels/ckpt_pack.py:76",
          "launches": 0, "max_abs_err": errs["ckpt_pack_dirty_blocks"],
          "ms": b1_ms, "plain_ms": b1_plain,
@@ -251,7 +327,7 @@ def check_kernels(device) -> list:
          "library_ms": None,
          "shape": f"bf16 {tuple(x2d_b.shape)}", "bytes": b1_bytes},
         {"name": "ckpt_pack_blocks", "route": "cuda",
-         "source": KERNEL_SOURCE,
+         "source": f"{CSRC}/ckpt_pack.cu",
          "replaces": "src/repro/kernels/ckpt_pack.py:56",
          "launches": 0, "max_abs_err": errs["ckpt_pack_blocks"],
          "ms": b2_ms, "plain_ms": b2_plain,
@@ -267,6 +343,124 @@ def check_kernels(device) -> list:
     return entries
 
 
+def check_attention(device) -> dict:
+    """Phase 3, B3: flash_attention against its plain version at the main
+    path's shape (bf16 and f32, the model's strided views) and at the
+    reference's sweep and variants (tests/test_kernels.py:126-166, at its
+    tolerances). Returns the ``kernels`` entry (launches filled in by
+    phase 6)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_attention_plain
+    gen = torch.Generator(device=device).manual_seed(1)
+
+    def qkv(B, H, KV, Lq, Lk, hd, dtype):
+        # (B, L, H, hd) swapped to (B, H, L, hd), as the model calls it
+        q = torch.randn((B, Lq, H, hd), generator=gen, device=device)
+        k, v = (torch.randn((B, Lk, KV, hd), generator=gen, device=device)
+                for _ in range(2))
+        return [t.to(dtype).transpose(1, 2) for t in (q, k, v)]
+
+    err = 0.0
+    cases = [("path", ATTN[:2] + (ATTN[1], ATTN[2], ATTN[2], ATTN[3]), {})]
+    cases += [("sweep", (B, H, KV, L, L, hd), {}) for B, H, KV, L, hd in (
+        (1, 4, 4, 128, 64), (2, 8, 2, 256, 64), (1, 4, 1, 384, 128),
+        (1, 2, 2, 100, 64))]
+    cases += [("variant", (1, 4, 2, 256, 256, 64), kw) for kw in (
+        {"window": 64}, {"cap": 50.0}, {"causal": False},
+        {"window": 32, "cap": 30.0})]
+    cases += [("variant", (1, 4, 4, 128, 512, 64), {"causal": False}),
+              ("variant", (1, 2, 2, 256, 128, 64), {"window": 32})]
+    print("  flash_attention (B3) against flash_attention_plain:", flush=True)
+    for kind, shape, kw in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            if kind == "variant" and dtype == torch.bfloat16:
+                continue
+            q, k, v = qkv(*shape, dtype)
+            got = ops.flash_attention(q, k, v, **kw)
+            want = flash_attention_plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            tol = (TOL_ATTN_BF16 if dtype == torch.bfloat16 else
+                   TOL_ATTN_VARIANT if kind == "variant" else TOL_ATTN_F32)
+            err = max(err, _close(f"{kind} {str(dtype)[6:]} {shape} {kw}",
+                                  got, want, tol))
+
+    # times at the main path's shape: bf16, causal, the model's views
+    B, H, L, hd = ATTN
+    q, k, v = qkv(B, H, H, L, L, hd, torch.bfloat16)
+    ms = _cuda_ms(lambda: ops.flash_attention(q, k, v))
+    plain_ms = _cuda_ms(lambda: flash_attention_plain(q, k, v))
+    # the yardstick only: the port never calls it
+    library_ms = _cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True))
+    n_bytes = 4 * B * H * L * hd * q.element_size()
+    flops = 4 * hd * B * H * L * (L + 1) // 2        # causal pairs only
+    bound_ms, bound_by = _bound(n_bytes, flops / BF16_FLOPS)
+    entry = {"name": "flash_attention", "route": "cuda",
+             "source": f"{CSRC}/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention.py:66",
+             "launches": 0, "max_abs_err": err, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": library_ms,
+             "shape": f"bf16 causal {ATTN}", "bytes": n_bytes,
+             "flops": flops}
+    return entry
+
+
+def check_ssd(device) -> dict:
+    """Phase 3, B4: ssd_intra_chunk against its plain version at
+    mamba2_370m's shape (batch 4 x 2048) and the reference's sweep
+    (tests/test_kernels.py:170-174), at the reference's 1e-4. Returns the
+    ``kernels`` entry (launches filled in by phase 7)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ssd_intra_chunk_plain
+    gen = torch.Generator(device=device).manual_seed(2)
+
+    def inputs(b, nc, cl, h, p, n):
+        xc = torch.randn((b, nc, cl, h, p), generator=gen, device=device)
+        dAc = -torch.randn((b, nc, cl, h), generator=gen,
+                           device=device).abs() * 0.1
+        Bc, Cc = (torch.randn((b, nc, cl, h, n), generator=gen,
+                              device=device) for _ in range(2))
+        return xc, dAc, Bc, Cc
+
+    err = 0.0
+    print("  ssd_intra_chunk (B4) against ssd_intra_chunk_plain:",
+          flush=True)
+    for shape in (SSD, (1, 2, 64, 2, 32, 16), (2, 4, 128, 4, 64, 32),
+                  (1, 1, 256, 8, 64, 64)):
+        args = inputs(*shape)
+        got = ops.ssd_intra_chunk(*args)
+        want = ssd_intra_chunk_plain(*args)
+        torch.cuda.synchronize()
+        err = max(err, _close(f"f32 (b, nc, cl, h, p, n) = {shape}", got,
+                              want, TOL_SSD))
+    args = inputs(*SSD)
+    ms = _cuda_ms(lambda: ops.ssd_intra_chunk(*args))
+    plain_ms = _cuda_ms(lambda: ssd_intra_chunk_plain(*args))
+    b, nc, cl, h, p, n = SSD
+    n_bytes = 4 * (b * nc * cl * h * (2 * p + 2 * n + 1))
+    pairs = b * nc * h * cl * (cl + 1) // 2          # s <= l only
+    products = pairs * (2 * n + 2 * p)   # C·Bᵀ, then with X
+    flops = products + pairs             # and the decay's multiply
+    # the bound takes the products at the split-bf16 tensor-core rate,
+    # the fastest route that could hold the 1e-4 of f32; the kernel's
+    # own design, every FLOP an f32 FMA, has the looser "fma bound"
+    bound_ms, bound_by = _bound(
+        n_bytes, products / F32_SPLIT_FLOPS + pairs / F32_FLOPS)
+    fma_ms = _bound(n_bytes, flops / F32_FLOPS)[0]
+    return {"name": "ssd_intra_chunk", "route": "cuda",
+            "source": f"{CSRC}/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:40",
+            "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "shape": f"f32 (b, nc, cl, h, p, n) = {SSD}", "bytes": n_bytes,
+            "flops": flops, "fma_bound_ms": fma_ms}
+
+
 # ------------------------------------------------------------ phase 4-5
 def _kernel_records(trainer, dirty_block: int) -> int:
     """Records the device-dirty snapshot sends through the kernel: float
@@ -279,7 +473,9 @@ def _kernel_records(trainer, dirty_block: int) -> int:
 
 
 def main_path(device, steps: int, batch: int, seq: int):
-    """Phases 4 and 5. Returns the B1 launch count of the main path."""
+    """Phases 4 and 5. Returns the ckpt_pack launch counts of the main
+    path, the model config, and the restored state with the trainer's
+    next batch (for phase 6)."""
     import dataclasses
     import gc
 
@@ -327,9 +523,7 @@ def main_path(device, steps: int, batch: int, seq: int):
               f"kernel; batch "
               f"{batch} x seq {seq}, {steps} steps", flush=True)
         torch.cuda.reset_peak_memory_stats()
-        # every count to 0 just before the main path
-        cp.ckpt_pack_dirty_blocks.launches = 0
-        cp.ckpt_pack_blocks.launches = 0
+        _zero_counts()             # just before the main path
         t0 = time.perf_counter()
         _, metrics = tr.run()
         wall = time.perf_counter() - t0
@@ -395,9 +589,207 @@ def main_path(device, steps: int, batch: int, seq: int):
                 fail(f"restored {name} is not bit-equal to the live state")
         print(f"  all {len(got)} records bit-equal to the live state; data "
               f"position {position}", flush=True)
-        return launches
+        tr2.engine.close()
+        return launches, cfg, tr2.state, tr2.data.peek(tr2.data.position)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------- phase 6
+def score_restored(cfg, state, batch):
+    """Phase 6: score the restored state with the kernel forward path
+    (``build_model(use_kernels=True)``) on the trainer's next batch, in
+    bf16 on the bf16 params and in f32 on the master weights, against the
+    same forward through ``flash_attention_plain``. Returns the
+    flash_attention launch count of the phase.
+
+    Tolerances: f32 logits within 1e-3 (the reference's model-level
+    tolerance, tests/test_use_pallas.py: the same f32 math, summed in
+    another order). bf16: the attention output is rounded to bf16, so
+    where the kernel's and the plain version's f32 results differ in the
+    last bits a bf16 rounding can flip by one ulp (2^-8 relative); the
+    flips spread through the later bf16 layers, so bf16 logits are not
+    held elementwise. Instead the kernel's output in every layer of the
+    bf16 forward is held against the plain version on the same q, k, v
+    at the kernel's bf16 tolerance (2e-2): a loss near log V, as after
+    two steps of training, hardly moves when attention is wrong, so the
+    loss alone proves little. The loss is held within 1e-3 relative too
+    (as tests/test_torch_model.py holds two bf16 computations of one
+    model), and the logits' largest difference is printed."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_attention_plain
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import build_model, cross_entropy
+
+    def plain_hook(q, k, v, cap=None):
+        return flash_attention_plain(q, k, v, causal=True, cap=cap)
+
+    def plain_forward(params, dtype):
+        return transformer.forward(params, cfg, batch, dtype=dtype,
+                                   attn_kernel=plain_hook)[0]
+
+    layer_errs = []
+
+    def checked_hook(q, k, v, cap=None):
+        got = ops.flash_attention(q, k, v, causal=True, cap=cap)
+        want = flash_attention_plain(q, k, v, causal=True, cap=cap)
+        layer_errs.append(_close(
+            f"bf16 attention of layer {len(layer_errs)}", got, want,
+            TOL_ATTN_BF16, quiet=True))
+        return got
+
+    print(f"phase 6: score the restored {cfg.name} with use_kernels=True "
+          f"on the trainer's next batch {tuple(batch['tokens'].shape)}",
+          flush=True)
+    with torch.inference_mode():
+        # every layer's kernel output against the plain version on the
+        # q, k, v of the bf16 forward (comparison launches, not counted)
+        transformer.forward(state.params, cfg, batch, dtype=torch.bfloat16,
+                            attn_kernel=checked_hook)
+        if len(layer_errs) != cfg.n_layers:
+            fail(f"the checked bf16 forward ran attention "
+                 f"{len(layer_errs)} times; expected {cfg.n_layers}")
+        print(f"  ok bf16 attention output of each of the {cfg.n_layers} "
+              f"layers vs the plain version: tol {TOL_ATTN_BF16} (rtol "
+              f"{TOL_ATTN_BF16}), max_abs_err {max(layer_errs)}", flush=True)
+    _zero_counts()             # just before the scoring path
+    with torch.inference_mode():
+        # bf16 compute on the bf16 params: the restored model, scored
+        model = build_model(cfg, use_kernels=True)
+        t0 = time.perf_counter()
+        loss = float(model.loss(state.params, batch))
+        wall = time.perf_counter() - t0
+        n = ops.flash_attention.launches
+        logits, _ = model.forward(state.params, batch)
+        n2 = ops.flash_attention.launches - n
+        plain_logits = plain_forward(state.params, torch.bfloat16)
+        plain_loss = float(cross_entropy(plain_logits, batch["labels"]))
+        diff = float((logits.float() - plain_logits.float()).abs().max())
+        print(f"  bf16: loss {loss:.6f} (plain {plain_loss:.6f}) in "
+              f"{wall:.3f} s; flash_attention launches {n} (loss) + {n2} "
+              f"(forward); logits max_abs_diff {diff}", flush=True)
+        if n != cfg.n_layers or n2 != cfg.n_layers:
+            fail(f"a bf16 forward launched flash_attention {n} / {n2} "
+                 f"times; expected {cfg.n_layers}")
+        if not (math.isfinite(loss) and abs(loss - plain_loss)
+                <= TOL_LOSS_BF16 * abs(plain_loss)):
+            fail(f"bf16 loss {loss} vs plain {plain_loss} beyond "
+                 f"{TOL_LOSS_BF16} relative")
+        del logits, plain_logits
+        # f32 compute on the f32 master weights
+        model32 = build_model(cfg, dtype=torch.float32, use_kernels=True)
+        n = ops.flash_attention.launches
+        logits, _ = model32.forward(state.opt.master, batch)
+        n = ops.flash_attention.launches - n
+        if n != cfg.n_layers:
+            fail(f"the f32 forward launched flash_attention {n} times; "
+                 f"expected {cfg.n_layers}")
+        if logits.shape != (*batch["tokens"].shape, cfg.vocab_size):
+            fail(f"f32 logits of shape {tuple(logits.shape)}")
+        want = plain_forward(state.opt.master, torch.float32)
+        _close(f"f32 logits {tuple(logits.shape)} ({n} launches)", logits,
+               want, TOL_MODEL, rtol=0.0)
+    torch.cuda.synchronize()
+    return ops.flash_attention.launches
+
+
+# ---------------------------------------------------------------- phase 7
+def run_mamba2(device):
+    """Phase 7: mamba2_370m at full width. Returns the ssd_intra_chunk
+    launch count of its kernel forward."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import CheckpointEngine, CheckpointSpec
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ssd_intra_chunk_plain
+    from repro_torch.models import mamba2
+    from repro_torch.models.registry import build_model, cross_entropy
+    from repro_torch.tree import flatten
+
+    cfg = get_config("mamba2_370m")
+    model = build_model(cfg, dtype=torch.float32, use_kernels=True)
+    params = model.init(0, device)
+    n_params = sum(t.numel() for _, t in flatten(params))
+    print(f"phase 7: {cfg.name} at full width ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, d_state {cfg.ssm.d_state}, head_dim "
+          f"{cfg.ssm.head_dim}, chunk {cfg.ssm.chunk}; {n_params} f32 "
+          f"params from seed 0)", flush=True)
+
+    # checkpoint round trip through the engine (fastpersist backend)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mamba2_")
+    try:
+        eng = CheckpointEngine(CheckpointSpec(directory=tmp,
+                                              backend="fastpersist"))
+        t0 = time.perf_counter()
+        st = eng.save(params, 1, {"step": 1}).wait()
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got, _ = eng.load(like=model.init(0, "meta"), device=device)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        eng.close()
+        for (name, a), (_, b) in zip(flatten(got), flatten(params)):
+            if a.shape != b.shape or not torch.equal(_ints(a), _ints(b)):
+                fail(f"mamba2 checkpoint: {name} is not bit-equal")
+        print(f"  checkpoint: {st.total_bytes} bytes saved in {t_save:.2f} s"
+              f", loaded in {t_load:.2f} s; all {len(flatten(got))} records"
+              f" bit-equal", flush=True)
+        del got
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    batch = TokenStream(DataConfig(cfg.vocab_size, M_SEQ, M_BATCH, seed=0),
+                        device=device).peek(0)
+    with torch.inference_mode():
+        _zero_counts()             # just before the kernel forward
+        t0 = time.perf_counter()
+        logits, _ = model.forward(params, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.ssd_intra_chunk.launches
+        loss = float(cross_entropy(logits, batch["labels"]))
+        print(f"  forward batch {M_BATCH} x seq {M_SEQ}: {wall:.3f} s, "
+              f"{launches} ssd_intra_chunk launches, loss {loss:.6f}",
+              flush=True)
+        if launches != cfg.n_layers:
+            fail(f"ssd_intra_chunk launched {launches} times; expected "
+                 f"{cfg.n_layers}")
+        if logits.shape != (M_BATCH, M_SEQ, cfg.vocab_size) \
+                or not math.isfinite(loss):
+            fail(f"mamba2 logits {tuple(logits.shape)}, loss {loss}")
+        want, _ = mamba2.forward(params, cfg, batch, dtype=torch.float32,
+                                 ssd_kernel=ssd_intra_chunk_plain)
+        _close(f"f32 logits {tuple(logits.shape)} vs the plain hook",
+               logits, want, TOL_MODEL, rtol=0.0)
+        del logits, want
+
+        # serving: prefill a prompt, greedy-decode, hold against forward
+        plain = build_model(cfg, dtype=torch.float32)
+        prompt = batch["tokens"][:, :M_PROMPT]
+        cache = plain.init_cache(M_BATCH, M_PROMPT + M_NEW, device)
+        t0 = time.perf_counter()
+        last, cache = plain.prefill(params, {"tokens": prompt}, cache)
+        tok = last[:, -1:].argmax(dim=-1).to(torch.int32)
+        toks, dec = [tok], []
+        for i in range(M_NEW):
+            lg, cache = plain.decode(params, tok, cache, M_PROMPT + i)
+            dec.append(lg[:, 0])
+            tok = lg[:, -1:].argmax(dim=-1).to(torch.int32)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        seq = torch.cat([prompt] + toks[:M_NEW], dim=1)
+        full, _ = model.forward(params, {"tokens": seq})
+        print(f"  prefill {M_BATCH} x {M_PROMPT} + {M_NEW} greedy decode "
+              f"steps: {wall:.3f} s", flush=True)
+        _close("prefill logits vs forward", last[:, 0],
+               full[:, M_PROMPT - 1], TOL_DECODE, rtol=0.0)
+        _close(f"{M_NEW} decode steps' logits vs forward",
+               torch.stack(dec, dim=1), full[:, M_PROMPT:], TOL_DECODE,
+               rtol=0.0)
+    return launches
 
 
 def main():
@@ -409,28 +801,51 @@ def main():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
              "CUDA card")
     device = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     card = card_line()
     print(f"phase 1: card {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
 
-    from repro_torch.kernels import ckpt_pack as cp
-    secs = cp.build(force=True)
-    print(f"phase 2: built {KERNEL_SOURCE} in {secs:.2f} s", flush=True)
-    for line in cp.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    secs = build.build(force=True)
+    built = ", ".join(f"{build.source(n).name} in {t:.2f} s"
+                      for n, t in secs.items())
+    print(f"phase 2: built {built} ({time.perf_counter() - t0:.2f} s wall, "
+          f"in parallel)", flush=True)
+    for name, log in build.build_log.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}")
 
     # float32 products in full precision (cuDNN is not used)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     entries = check_kernels(device)
+    entries += [check_attention(device), check_ssd(device)]
+    for e in entries[2:]:
+        lib = ("none" if e["library_ms"] is None
+               else f"{e['library_ms']:.4f} ms")
+        fma = ("" if "fma_bound_ms" not in e else
+               f"; f32-FMA design bound {e['fma_bound_ms']:.4f} ms")
+        print(f"  time {e['name']} {e['shape']}: {e['ms']:.4f} ms (plain "
+              f"{e['plain_ms']:.4f} ms, library {lib}, bound "
+              f"{e['bound_ms']:.4f} ms by {e['bound_by']}: {e['bytes']} B, "
+              f"{e['flops']} FLOP{fma})", flush=True)
     torch.cuda.empty_cache()
-    launches = main_path(device, STEPS, BATCH, SEQ)
+    launches, cfg, state, batch = main_path(device, STEPS, BATCH, SEQ)
+    launches["flash_attention"] = score_restored(cfg, state, batch)
+    del state, batch
+    torch.cuda.empty_cache()
+    launches["ssd_intra_chunk"] = run_mamba2(device)
     for e in entries:
         e["launches"] = launches[e["name"]]
+    print(f"every phase passed in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": [
-        {k: v for k, v in e.items() if k not in ("shape", "bytes")}
+        {k: v for k, v in e.items()
+         if k not in ("shape", "bytes", "flops", "fma_bound_ms")}
         for e in entries]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -7,85 +7,31 @@ x, prev and packed once each); the source says how the design follows.
 
 The library is built with ``nvcc`` from the package's own source into
 ``build/kernels/`` at the repository root on first use and loaded with
-``ctypes``. Each wrapper runs its plain PyTorch version
-(``repro_torch.kernels.ref``) for CPU tensors only; for a CUDA tensor it
-launches the kernel or raises. Each wrapper counts its launches in a
+``ctypes`` (``repro_torch.kernels.build``). Each wrapper runs its plain
+PyTorch version (``repro_torch.kernels.ref``) for CPU tensors only; for
+a CUDA tensor it launches the kernel or raises. Each wrapper counts its launches in a
 plain integer attribute, ``<wrapper>.launches``.
 """
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-import threading
-import time
-from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels.ref import ckpt_pack_dirty_plain, ckpt_pack_plain
 
 DEFAULT_BLOCK = 8 * 1024
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "ckpt_pack.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-LIBRARY = BUILD_DIR / "libckpt_pack.so"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_lock = threading.Lock()
-_lib = None
-#: nvcc's output of the last build (ptxas register / spill report)
-build_log = ""
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
-        or "/usr/local/cuda"
-    path = shutil.which("nvcc") or os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the ckpt_pack CUDA kernels are "
-                           "built on first use and need the CUDA toolkit")
-    return path
-
-
-def build(force: bool = False) -> float:
-    """Compile ``csrc/ckpt_pack.cu`` into ``LIBRARY`` (skipped when the
-    library is newer than the source, unless ``force``). Returns the
-    build's wall seconds (0.0 when skipped). Raises on a failed build."""
-    global build_log
-    if not force and LIBRARY.exists() \
-            and LIBRARY.stat().st_mtime >= SOURCE.stat().st_mtime:
-        return 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIBRARY.with_name(f".{LIBRARY.name}.{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(SOURCE)], capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{build_log}")
-    os.replace(tmp, LIBRARY)
-    return time.perf_counter() - t0
-
-
-def _library():
-    global _lib
-    with _lock:
-        if _lib is None:
-            build()
-            lib = ctypes.CDLL(str(LIBRARY))
-            fn = lib.ckpt_pack_launch
-            fn.argtypes = [ctypes.c_void_p] * 5 + [
-                ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+def _bind(lib):
+    fn = lib.ckpt_pack_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
 
 
 def _operand(t: torch.Tensor, what: str) -> torch.Tensor:
@@ -101,9 +47,7 @@ def _operand(t: torch.Tensor, what: str) -> torch.Tensor:
 def _launch(x2d, prev2d, out_dtype, scale, identity: bool):
     """Allocate the outputs and launch the kernel on the current stream
     (no synchronisation). Returns (packed, amax, mask-or-None)."""
-    if x2d.device.type != "cuda":
-        raise RuntimeError(f"ckpt_pack: tensor on {x2d.device}, expected "
-                           f"cuda (plain version runs only on the CPU)")
+    build.on_cuda("ckpt_pack", x2d)
     n, block = x2d.shape
     if block % 8:
         raise ValueError(f"ckpt_pack: block {block} is not a multiple of 8 "
@@ -124,7 +68,7 @@ def _launch(x2d, prev2d, out_dtype, scale, identity: bool):
         mask = torch.empty((n,), dtype=torch.int32, device=dev)
     if n == 0:
         return y, amax, mask
-    lib = _library()
+    lib = build.load("ckpt_pack", _bind)
     with torch.cuda.device(dev):
         rc = lib.ckpt_pack_launch(
             x2d.data_ptr(), prev2d.data_ptr() if mask is not None else None,
@@ -132,7 +76,7 @@ def _launch(x2d, prev2d, out_dtype, scale, identity: bool):
             mask.data_ptr() if mask is not None else None,
             n, block, _CODES[x2d.dtype], _CODES[out_dtype], int(identity),
             int(mask is not None), float(scale),
-            torch.cuda.current_stream(dev).cuda_stream)
+            build.stream_of(x2d))
     if rc != 0:
         raise RuntimeError(f"ckpt_pack kernel launch failed: cudaError {rc}")
     return y, amax, mask

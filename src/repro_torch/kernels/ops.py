@@ -1,11 +1,20 @@
-"""Public wrappers around the ckpt_pack kernels (the counterpart of
-``repro.kernels.ops``): flatten + zero-pad any tensor into
-``(n_blocks, block)`` rows, then pack."""
+"""Public wrappers around the kernels (the counterpart of
+``repro.kernels.ops``). The ckpt_pack ones flatten + zero-pad any tensor
+into ``(n_blocks, block)`` rows, then pack. ``flash_attention`` and
+``ssd_intra_chunk`` are the kernel wrappers themselves, with the
+reference's signatures less ``flash_attention``'s ``block_q``/``block_k``
+(the CUDA kernel's tiling is fixed); their launch counts are
+``ops.flash_attention.launches`` and ``ops.ssd_intra_chunk.launches``."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ckpt_pack as _cp
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ssd_scan import ssd_intra_chunk
+
+__all__ = ["ckpt_pack", "ckpt_pack_dirty", "flash_attention", "pack_blocks",
+           "ssd_intra_chunk"]
 
 
 def _to_blocks(flat, block):

@@ -2,9 +2,10 @@
 dense path of ``repro.models.transformer``).
 
 Layers are stacked on a leading axis, as in the reference; a Python loop
-over the layers replaces ``lax.scan``. Prefill, decode, MoE, MLA, the
-vision frontend, soft-capping and the local/global window alternation
-(gemma2) wait for a later slice of the port.
+over the layers replaces ``lax.scan``. The ``attn_kernel`` hook takes
+the flash-attention kernel (``build_model(use_kernels=True)``). Prefill,
+decode, MoE, MLA, the vision frontend, soft-capping and the local/global
+window alternation (gemma2) wait for a later slice of the port.
 """
 from __future__ import annotations
 
@@ -47,32 +48,36 @@ def init(cfg, generator, device):
     return params
 
 
-def _layer(tree, i):
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
-
-
-def _block(cfg, x, lp, pos):
-    """One decoder block."""
+def _block(cfg, x, lp, pos, attn_kernel=None):
+    """One decoder block. ``attn_kernel(q, k, v, cap=...)`` on (B, H, L,
+    hd) tensors replaces the attention: the reference's gate (no cache,
+    no window) always holds here, since this forward has no cache and
+    ``_check_dense`` refuses windows."""
     h = ly.rmsnorm(x, lp["ln1"], cfg.norm_eps)
     q, k, v = ly.gqa_qkv(lp["attn"], h, cfg)
     cos, sin = ly.rope_tables(pos, cfg.resolved_head_dim, cfg.rope_theta)
     q = ly.apply_rope(q, cos, sin)
     k = ly.apply_rope(k, cos, sin)
-    o = ly.attention(q, k, v, q_pos=pos, kv_pos=pos)
+    if attn_kernel is not None:
+        o = attn_kernel(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2),
+                        cap=cfg.attn_softcap).transpose(1, 2)
+    else:
+        o = ly.attention(q, k, v, q_pos=pos, kv_pos=pos)
     x = x + ly.gqa_out(lp["attn"], o)
     h = ly.rmsnorm(x, lp["ln2"], cfg.norm_eps)
     return x + ly.mlp(lp["mlp"], h, gated=cfg.gated_mlp,
                       act=torch.nn.functional.silu)
 
 
-def forward(params, cfg, batch, *, dtype=torch.bfloat16):
+def forward(params, cfg, batch, *, dtype=torch.bfloat16, attn_kernel=None):
     """Teacher-forced full-sequence forward. Returns (logits, aux_loss)."""
     _check_dense(cfg)
     x = params["embed"].to(dtype)[batch["tokens"]]
     pos = torch.arange(x.shape[1], device=x.device)
     for i in range(cfg.n_layers):
-        x = _block(cfg, x, _layer(params["layers"], i), pos)
+        x = _block(cfg, x, ly.layer_slice(params["layers"], i), pos,
+                   attn_kernel)
     x = ly.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     w = (params["embed"].T if cfg.tie_embeddings
          else params["lm_head"]).to(x.dtype)

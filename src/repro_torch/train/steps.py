@@ -1,4 +1,4 @@
-"""Train step over the uniform Model API (the counterpart of
+"""Train and decode steps over the uniform Model API (the counterpart of
 ``repro.train.steps``)."""
 from __future__ import annotations
 
@@ -58,3 +58,13 @@ def make_train_step(model, opt_cfg: AdamConfig, gas: int = 1):
         return state, metrics
 
     return train_step
+
+
+def make_decode_step(model):
+    """Returns decode_step(params, tokens, cache, pos) -> (next greedy
+    token (B, 1) int32, cache)."""
+    def decode_step(params, tokens, cache, pos):
+        logits, cache = model.decode(params, tokens, cache, pos)
+        next_tok = logits[:, -1:].argmax(dim=-1).to(torch.int32)
+        return next_tok, cache
+    return decode_step

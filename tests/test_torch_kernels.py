@@ -226,6 +226,13 @@ def test_ckpt_pack_dirty_shape_mismatch():
         ops.ckpt_pack_dirty(x, prev, block=1024)
 
 
+def _ssd_args(device):
+    return (torch.zeros((1, 1, 16, 2, 32), device=device),
+            torch.zeros((1, 1, 16, 2), device=device),
+            torch.zeros((1, 1, 16, 2, 16), device=device),
+            torch.zeros((1, 1, 16, 2, 16), device=device))
+
+
 def test_wrappers_never_fall_back_off_the_cpu():
     """The plain version serves CPU tensors only; any other device must
     launch the kernel or raise (a ``meta`` tensor here: no kernel)."""
@@ -235,16 +242,24 @@ def test_wrappers_never_fall_back_off_the_cpu():
     with pytest.raises(RuntimeError, match="expected cuda"):
         cp.ckpt_pack_dirty_blocks(x, torch.empty((4, 1024), device="meta"),
                                   out_dtype=torch.float32)
+    q = torch.empty((1, 2, 8, 64), device="meta")
+    with pytest.raises(RuntimeError, match="expected cuda"):
+        ops.flash_attention(q, q, q)
+    with pytest.raises(RuntimeError, match="expected cuda"):
+        ops.ssd_intra_chunk(*_ssd_args("meta"))
 
 
 def test_plain_versions_count_no_launches():
-    before = (cp.ckpt_pack_blocks.launches,
-              cp.ckpt_pack_dirty_blocks.launches)
+    wrappers = (cp.ckpt_pack_blocks, cp.ckpt_pack_dirty_blocks,
+                ops.flash_attention, ops.ssd_intra_chunk)
+    before = [w.launches for w in wrappers]
     x = torch.zeros((2, 1024))
     cp.ckpt_pack_blocks(x)
     cp.ckpt_pack_dirty_blocks(x, x.clone(), out_dtype=torch.float32)
-    assert (cp.ckpt_pack_blocks.launches,
-            cp.ckpt_pack_dirty_blocks.launches) == before
+    q = torch.zeros((1, 2, 8, 64))
+    ops.flash_attention(q, q, q)
+    ops.ssd_intra_chunk(*_ssd_args("cpu"))
+    assert [w.launches for w in wrappers] == before
 
 
 # ------------------------------------------------------------ on the card
