@@ -26,7 +26,15 @@ Phases, each of which exits non-zero on failure:
    trainer's next batch, bf16 on the bf16 params and f32 on the master
    weights, against the same forward through the plain attention;
    flash_attention launch counts read around it;
-7. mamba2_370m at full width: init from a seed, a checkpoint round trip
+7. quantized save: the restored state saved with ``quantize=True``
+   (int8 per block of 4096, scales from ckpt_pack_blocks on the card;
+   its launch count read around the save), each record's kernel amax
+   held bit for bit against the host amax of the same values, the int8
+   and scale bytes on disk against host-amax quantization, a restore
+   onto the card within the quantizer's per-block bound, then a
+   ``delta_quantize`` chain (2 layers at published widths, device-dirty)
+   restored within the same bound on its q8 spans;
+8. mamba2_370m at full width: init from a seed, a checkpoint round trip
    through the engine, the kernel forward at batch 4 x 2048 against the
    plain hook (ssd_intra_chunk launch counts read around it), and a
    batch-4 x 512 prefill + 16 greedy decode steps against the forward.
@@ -412,7 +420,7 @@ def check_ssd(device) -> dict:
     """Phase 3, B4: ssd_intra_chunk against its plain version at
     mamba2_370m's shape (batch 4 x 2048) and the reference's sweep
     (tests/test_kernels.py:170-174), at the reference's 1e-4. Returns the
-    ``kernels`` entry (launches filled in by phase 7)."""
+    ``kernels`` entry (launches filled in by phase 8)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import ssd_intra_chunk_plain
@@ -474,8 +482,8 @@ def _kernel_records(trainer, dirty_block: int) -> int:
 
 def main_path(device, steps: int, batch: int, seq: int):
     """Phases 4 and 5. Returns the ckpt_pack launch counts of the main
-    path, the model config, and the restored state with the trainer's
-    next batch (for phase 6)."""
+    path, the model config, the restored state with the trainer's next
+    batch (for phase 6) and the extras a save of it carries (phase 7)."""
     import dataclasses
     import gc
 
@@ -590,7 +598,8 @@ def main_path(device, steps: int, batch: int, seq: int):
         print(f"  all {len(got)} records bit-equal to the live state; data "
               f"position {position}", flush=True)
         tr2.engine.close()
-        return launches, cfg, tr2.state, tr2.data.peek(tr2.data.position)
+        return (launches, cfg, tr2.state, tr2.data.peek(tr2.data.position),
+                {"step": step, "data": tr2.data.state()})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -695,8 +704,281 @@ def score_restored(cfg, state, batch):
 
 
 # ---------------------------------------------------------------- phase 7
+def _stream_offsets(leaves):
+    """(name, stream offset) of each leaf, in stream order."""
+    out, off = [], 0
+    for name, t in leaves:
+        out.append((name, off))
+        off += t.numel() * t.element_size()
+    return out
+
+
+def _q8_bound(x, xh):
+    """Fail-free check of restored ``xh`` against ``x`` inside q8 data:
+    per 4096-element block (zero-padded), |x - x̂| ≤ amax/254 — half a
+    quantization step — plus 2^-22·amax for the f32 roundings of the
+    division and the product, plus half an ulp of x̂ in its own dtype
+    for bf16 (2^-8) and f16 (2^-11) records. Returns (elements beyond
+    the bound, largest error)."""
+    import torch
+    from repro_torch.core.quant import BLOCK
+    rel = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -8,
+           torch.float16: 2.0 ** -11}[xh.dtype]
+    x, xh = x.reshape(-1).float(), xh.reshape(-1).float()
+    n = x.numel()
+    pad = (-n) % BLOCK
+    amax = torch.cat([x.abs(), x.new_zeros(pad)]).view(-1, BLOCK) \
+        .amax(dim=1).repeat_interleave(BLOCK)[:n]
+    err = (x - xh).abs()
+    bad = int((err > amax / 254 + amax * 2.0 ** -22 + rel * xh.abs()).sum())
+    return bad, float(err.max()) if n else 0.0
+
+
+def _same_bits(a, b) -> bool:
+    import torch
+    return a.dtype == b.dtype and a.shape == b.shape and \
+        torch.equal(_ints(a.detach()), _ints(b.detach()))
+
+
+def quantized_save(cfg, state, extras, device) -> int:
+    """Phase 7 (a)-(f): save the restored ``cfg`` state through an engine
+    with ``FastPersistConfig(quantize=True)``, B2's launches read around
+    the save, and hold the result against host quantization and the live
+    state. Returns the ckpt_pack_blocks launch count of the save."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.core import quant
+    from repro_torch.core.checkpointer import FastPersistConfig
+    from repro_torch.core.engine import CheckpointEngine, CheckpointSpec
+    from repro_torch.core.partition import Topology
+    from repro_torch.core.serializer import dtype_name
+    from repro_torch.kernels import ckpt_pack as cp
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.steps import init_train_state
+    from repro_torch.tree import flatten
+
+    leaves = flatten(state)
+    qnames = [n for n, t in leaves
+              if quant.quantizable(dtype_name(t), t.numel())]
+    full = sum(t.numel() * t.element_size() for _, t in leaves)
+    want_bytes = sum(t.numel() + 4 * -(-t.numel() // quant.BLOCK)
+                     if n in qnames else t.numel() * t.element_size()
+                     for n, t in leaves)
+    print(f"phase 7: quantized save of the restored {cfg.name} "
+          f"({len(leaves)} records, {len(qnames)} quantizable; "
+          f"{full} B full)", flush=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_q8_")
+    try:
+        spec = CheckpointSpec(
+            directory=tmp, backend="fastpersist-pipelined",
+            fp=FastPersistConfig(quantize=True, topology=Topology(
+                dp_degree=4, ranks_per_node=4)))
+        eng = CheckpointEngine(spec)
+        _zero_counts()             # just before the quantized save
+        t0 = time.perf_counter()
+        st = eng.save(state, extras["step"], extras).wait()
+        wall = time.perf_counter() - t0
+        launches = cp.ckpt_pack_blocks.launches
+        eng.close()
+        del eng                    # frees the save's 23 GB staging arena
+        gc.collect()
+        snap_s = st.serialize_seconds - st.quantize_seconds
+        print(f"  (a) save: {launches} ckpt_pack_blocks launches; "
+              f"{st.total_bytes} B on disk vs {full} B full "
+              f"({full / st.total_bytes:.3f}x smaller); snapshot "
+              f"{snap_s:.3f} s, quantize {st.quantize_seconds:.3f} s, "
+              f"persist {st.seconds:.3f} s, commit "
+              f"{st.commit_seconds:.3f} s, wall {wall:.3f} s; writers "
+              f"{st.n_writers}, o_direct "
+              f"{all(w.direct for w in st.per_writer)}", flush=True)
+        if launches != len(qnames):
+            fail(f"ckpt_pack_blocks launched {launches} times on the "
+                 f"quantized save; expected {len(qnames)}")
+        if sorted(st.device_amax) != sorted(qnames):
+            fail("the save's device amax does not cover exactly the "
+                 "quantizable records")
+        if st.total_bytes != want_bytes:
+            fail(f"{st.total_bytes} B on disk; the layout gives "
+                 f"{want_bytes}")
+
+        # (b), (c): kernel amax vs host amax, disk bytes vs host quantize
+        rd = CheckpointEngine(CheckpointSpec(directory=tmp))
+        t0 = time.perf_counter()
+        for name, t in leaves:
+            if name not in qnames:
+                continue
+            host = t.detach().cpu()
+            amax = quant.block_amax(host)
+            dev = st.device_amax[name]
+            nan = np.isnan(amax)
+            if not (np.array_equal(np.isnan(dev), nan) and np.array_equal(
+                    dev[~nan].view(np.uint32), amax[~nan].view(np.uint32))):
+                fail(f"{name}: the kernel's amax differs from the host "
+                     f"amax of the same values")
+            q, scale = quant._blockwise(host, amax=amax)
+            q_disk = rd.load_tensor(name + "#q8").reshape(-1).numpy()
+            s_disk = rd.load_tensor(name + "#scale").numpy()
+            ok = s_disk.tobytes() == scale.tobytes()
+            finite = ~np.isnan(host.float().reshape(-1).numpy())
+            ok = ok and np.array_equal(q_disk[finite], q[finite])
+            if not ok:
+                fail(f"{name}: int8/scale bytes on disk differ from "
+                     f"host-amax quantization")
+        print(f"  (b) kernel amax bit-equal to the host amax on all "
+              f"{len(qnames)} records; (c) their #q8 and #scale bytes on "
+              f"disk equal host-amax quantization "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+        # (d) restore onto the card, within the per-block bound
+        like = init_train_state(build_model(cfg), 0, "meta")
+        t0 = time.perf_counter()
+        got, man = rd.load(like=like, device=device, parallel="auto")
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        t_deq = rd._backend._inner.last_dequantize_seconds
+        worst = {}
+        for (name, a), (_, b) in zip(flatten(got), leaves):
+            if a.dtype != b.dtype or a.shape != b.shape:
+                fail(f"restored {name} is {a.dtype}{tuple(a.shape)}")
+            if name in qnames:
+                bad, err = _q8_bound(b, a)
+                if bad:
+                    fail(f"restored {name}: {bad} elements beyond the "
+                         f"per-block bound (max err {err})")
+                worst[str(a.dtype)] = max(worst.get(str(a.dtype), 0.0), err)
+            elif not _same_bits(a, b):
+                fail(f"restored {name} (not quantized) is not bit-equal")
+        if man.extras.get("step") != extras["step"] \
+                or man.extras.get("data") != extras["data"]:
+            fail(f"restored extras {man.extras}; expected {extras}")
+        print(f"  (d) restored onto {device} in {t_restore:.3f} s "
+              f"(dequantize {t_deq:.3f} s): {len(qnames)} records within "
+              f"the per-block bound (max abs err {worst}), the rest "
+              f"bit-equal; step {man.extras['step']}, data "
+              f"{man.extras['data']}", flush=True)
+        print(f"  (e) bytes on disk {st.total_bytes} vs keyframe {full}; "
+              f"(f) seconds: quantize {st.quantize_seconds:.3f} persist "
+              f"{st.seconds:.3f} commit {st.commit_seconds:.3f} restore "
+              f"{t_restore:.3f} dequantize {t_deq:.3f}", flush=True)
+        del got
+        rd.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # B2's time inside the save (its 44 launches; comparison launches,
+    # after the count was read), and bf16 against f32 packed output on
+    # the largest f32 record
+    torch.cuda.synchronize()
+    ms = _cuda_ms(lambda: quant.launch_amax(leaves), iters=3)
+    n_bytes = sum(t.numel() * (t.element_size() + 2)
+                  + 4 * -(-t.numel() // quant.BLOCK)
+                  for n, t in leaves if n in qnames)
+    big = max((t for n, t in leaves
+               if n in qnames and t.dtype == torch.float32),
+              key=lambda t: t.numel())
+    # in turns: bf16, f32, f32, bf16 packed output
+    outs = [(str(od)[6:], _cuda_ms(lambda od=od: ops.ckpt_pack(
+        big, out_dtype=od, block=quant.BLOCK))) for od in
+        (torch.bfloat16, torch.float32, torch.float32, torch.bfloat16)]
+    print(f"  B2 in the save: {launches} launches in {ms:.3f} ms "
+          f"({n_bytes} B, bytes bound "
+          f"{n_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms); on the "
+          f"{tuple(big.shape)} f32 record, by packed dtype: "
+          + ", ".join(f"{od} {t:.3f} ms" for od, t in outs), flush=True)
+    return launches
+
+
+def quantized_chain(cfg, device):
+    """Phase 7, the chain: a Trainer with ``delta_quantize`` on ``cfg`` at
+    its published widths and 2 layers (its kernel, B1, runs at full width
+    in phase 4; the q8 encoding is host code), keyframe_every=2,
+    device-dirty, 2 steps; a fresh Trainer restores it, bit-equal outside
+    the q8 spans and within the per-block bound inside them."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.core.checkpointer import FastPersistConfig
+    from repro_torch.core.delta import DeltaSpan
+    from repro_torch.core.partition import Topology
+    from repro_torch.train.trainer import (CheckpointPolicy, Trainer,
+                                           TrainerConfig)
+    from repro_torch.tree import flatten
+
+    cfg = dataclasses.replace(cfg, n_layers=2)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_q8_chain_")
+    try:
+        pol = CheckpointPolicy(
+            directory=tmp, every=1, backend="fastpersist-pipelined",
+            keyframe_every=2, restore_readers="auto",
+            fp=FastPersistConfig(device_dirty=True, delta_quantize=True,
+                                 topology=Topology(dp_degree=4,
+                                                   ranks_per_node=4)))
+        tcfg = TrainerConfig(model=cfg, steps=STEPS, global_batch=BATCH,
+                             seq_len=SEQ, checkpoint=pol, log_every=100)
+        tr = Trainer(tcfg, device=device)
+        t0 = time.perf_counter()
+        tr.run()
+        wall = time.perf_counter() - t0
+        first, second = (h.result() for h in tr.saves)
+        if first.delta is not None or second.delta is None:
+            fail("the delta_quantize chain is not keyframe + delta")
+        spans = [DeltaSpan.from_list(r) for r in second.delta["spans"]]
+        n_q8 = sum(s.enc == "q8" for s in spans)
+        print(f"  chain: {cfg.name} with {cfg.n_layers} layers, {STEPS} "
+              f"steps in {wall:.2f} s; delta {second.delta['dirty_bytes']} "
+              f"dirty B packed to {second.total_bytes} B, {n_q8} of "
+              f"{len(spans)} spans q8", flush=True)
+        if not n_q8:
+            fail("no q8 span in the delta_quantize generation")
+        live, position = tr.state, tr.data.position
+        tr.engine.close()
+        del tr
+        gc.collect()
+        tr2 = Trainer(tcfg, device=device)
+        t0 = time.perf_counter()
+        step = tr2.restore()
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        if step != STEPS or tr2.data.position != position:
+            fail(f"chain restore gave step {step} at {tr2.data.position}")
+        q8 = {}
+        recs = _stream_offsets(flatten(live))
+        for s in spans:
+            if s.enc == "q8":
+                name, off = next(r for r in reversed(recs)
+                                 if r[1] <= s.offset)
+                q8.setdefault(name, []).append((s.offset - off, s.length))
+        worst = 0.0
+        for (name, a), (_, b) in zip(flatten(tr2.state), flatten(live)):
+            a, b = a.detach().reshape(-1), b.detach().reshape(-1)
+            inside = torch.zeros(a.numel(), dtype=torch.bool,
+                                 device=a.device)
+            for off, length in q8.get(name, ()):
+                lo, n = off // a.element_size(), length // a.element_size()
+                bad, err = _q8_bound(b[lo:lo + n], a[lo:lo + n])
+                if bad:
+                    fail(f"chain restore {name}: {bad} elements beyond the "
+                         f"per-block bound (max err {err})")
+                worst = max(worst, err)
+                inside[lo:lo + n] = True
+            if not _same_bits(a[~inside], b[~inside]):
+                fail(f"chain restore {name}: bytes outside the q8 spans "
+                     f"differ")
+        print(f"  chain restored step {step} in {t_restore:.2f} s: q8 spans "
+              f"of {len(q8)} records within the per-block bound (max abs "
+              f"err {worst}), every other byte bit-equal", flush=True)
+        tr2.engine.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------- phase 8
 def run_mamba2(device):
-    """Phase 7: mamba2_370m at full width. Returns the ssd_intra_chunk
+    """Phase 8: mamba2_370m at full width. Returns the ssd_intra_chunk
     launch count of its kernel forward."""
     import torch
     from repro_torch.configs import get_config
@@ -712,7 +994,7 @@ def run_mamba2(device):
     model = build_model(cfg, dtype=torch.float32, use_kernels=True)
     params = model.init(0, device)
     n_params = sum(t.numel() for _, t in flatten(params))
-    print(f"phase 7: {cfg.name} at full width ({cfg.n_layers} layers, "
+    print(f"phase 8: {cfg.name} at full width ({cfg.n_layers} layers, "
           f"d_model {cfg.d_model}, d_state {cfg.ssm.d_state}, head_dim "
           f"{cfg.ssm.head_dim}, chunk {cfg.ssm.chunk}; {n_params} f32 "
           f"params from seed 0)", flush=True)
@@ -834,9 +1116,15 @@ def main():
               f"{e['bound_ms']:.4f} ms by {e['bound_by']}: {e['bytes']} B, "
               f"{e['flops']} FLOP{fma})", flush=True)
     torch.cuda.empty_cache()
-    launches, cfg, state, batch = main_path(device, STEPS, BATCH, SEQ)
+    launches, cfg, state, batch, extras = main_path(device, STEPS, BATCH,
+                                                    SEQ)
     launches["flash_attention"] = score_restored(cfg, state, batch)
-    del state, batch
+    del batch
+    torch.cuda.empty_cache()
+    launches["ckpt_pack_blocks"] = quantized_save(cfg, state, extras, device)
+    del state
+    torch.cuda.empty_cache()
+    quantized_chain(cfg, device)
     torch.cuda.empty_cache()
     launches["ssd_intra_chunk"] = run_mamba2(device)
     for e in entries:

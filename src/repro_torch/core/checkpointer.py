@@ -28,10 +28,12 @@ onto any reader configuration. Two restore modes:
     verification (no second sweep).
 
 A copy of ``repro.core.checkpointer`` on torch tensors: the on-disk
-format is the reference's byte for byte. Not ported yet, and raising
-``NotImplementedError``: quantized saves and quantized delta spans
-(ROADMAP.md queue A item 4) and the per-rank owned reads behind
-``load_owned`` (queue A item 2).
+format is the reference's byte for byte. Quantized saves (``quantize``,
+int8 per-block, lossy) take each block's scale from the
+``ckpt_pack_blocks`` CUDA kernel for state on the card, launched before
+the snapshot is released to the trainer. Not ported yet, and raising
+``NotImplementedError``: the per-rank owned reads behind ``load_owned``
+(ROADMAP.md queue A item 2).
 """
 from __future__ import annotations
 
@@ -47,7 +49,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
-from repro_torch.core import layout
+from repro_torch.core import layout, quant
 from repro_torch.core.arena import SerializeArena
 from repro_torch.core.delta import (DeltaPlan, apply_delta,
                                     assign_span_shards, build_delta)
@@ -61,6 +63,7 @@ from repro_torch.core.serializer import (ByteStreamView, Manifest,
                                          decode_record, deserialize,
                                          serialize, tensor_spans)
 from repro_torch.core.writer import WriteStats, WriterConfig, write_stream
+from repro_torch.tree import flatten, unflatten
 
 
 class _GatedSegments:
@@ -126,7 +129,7 @@ class FastPersistConfig:
     #: per-extent CRCs accumulate during the writers' fill phase
     #: (writer.py single-pass integrity) — no second sweep over the
     #: stream happens in save().
-    quantize: bool = False             # int8 per-block (not ported: raises)
+    quantize: bool = False             # int8 per-block (beyond-paper, lossy)
     #: reuse one page-aligned host staging arena across saves (zero
     #: allocation steady-state; see repro_torch.core.arena). Turn off to get
     #: the old allocate-per-save serialize.
@@ -140,8 +143,8 @@ class FastPersistConfig:
     #: compare runs against); incompatible with ``quantize`` and
     #: ``single_file`` — those saves silently stay full.
     keyframe_every: int = 1
-    #: int8-quantize delta spans (the reference's lossy option; not
-    #: ported: raises)
+    #: int8-quantize delta spans before they hit disk (lossy; blockwise
+    #: absmax scales, DESIGN.md §9) — keyframes stay full-precision
     delta_quantize: bool = False
     #: dirty-compare granularity in bytes (delta spans coalesce to
     #: multiples of this)
@@ -160,7 +163,8 @@ class FastPersistConfig:
     #: waits for the last tensor to leave the device, and with an async
     #: engine the WRITE overlaps the next train step (the step only
     #: waits for the snapshot, ``wait_snapshot``). 0 = the old
-    #: monolithic copy. Needs the arena.
+    #: monolithic copy. Needs the arena; quantized saves stay
+    #: monolithic (the quantizer reads the whole stream).
     snapshot_chunk_mb: int = 8
     #: device-side dirty masks (DESIGN.md §10): keep a packed previous
     #: image of every float record RESIDENT ON DEVICE and let the
@@ -216,22 +220,23 @@ class SaveStats:
     snapshot_seconds: float = 0.0
     #: chunk count of the snapshot (0 = monolithic copy)
     snapshot_chunks: int = 0
+    #: wall time of the host int8 quantizer (``quantize`` saves; part of
+    #: ``serialize_seconds``)
+    quantize_seconds: float = 0.0
+    #: the per-block amax every scale of a ``quantize`` save came from,
+    #: by record name, for the records whose amax the ckpt_pack_blocks
+    #: kernel computed on the card (empty for host state)
+    device_amax: Dict[str, object] = field(default_factory=dict)
 
     @property
     def gbps(self):
         return self.total_bytes / max(self.seconds, 1e-12) / 1e9
 
 
-_QUANT_TODO = ("quantized saves (quantize / delta_quantize) are not "
-               "ported yet: ROADMAP.md queue A item 4")
-
-
 class FastPersistCheckpointer:
     def __init__(self, directory: str, config: FastPersistConfig = None):
         self.directory = directory
         self.config = config or FastPersistConfig()
-        if self.config.quantize or self.config.delta_quantize:
-            raise NotImplementedError(_QUANT_TODO)
         os.makedirs(directory, exist_ok=True)
         self._plan_cache = {}
         # persistent staging arena: reused across save() calls AND across
@@ -255,6 +260,9 @@ class FastPersistCheckpointer:
         #: point a donating train step may reuse the state's buffers,
         #: while the write is still in flight
         self.on_snapshot = None
+        #: wall time of the last load's dequantization (quantized
+        #: checkpoints only)
+        self.last_dequantize_seconds = 0.0
 
     # -- setup-time planning (paper: partition fixed before iteration 1) --
     def plan_for(self, total_bytes: int, n_volumes: int = 1,
@@ -326,12 +334,21 @@ class FastPersistCheckpointer:
         track = self._delta_enabled()
         device_dirty = bool(self.config.device_dirty
                             and self._arena is not None)
-        # chunked snapshot (DESIGN.md §10): arena-only
+        # chunked snapshot (DESIGN.md §10): arena-only, and quantized
+        # saves stay monolithic (the quantizer reads the whole stream)
         chunk_bytes = 0
-        if self.config.snapshot_chunk_mb > 0 and self._arena is not None:
+        if (self.config.snapshot_chunk_mb > 0 and self._arena is not None
+                and not self.config.quantize):
             chunk_bytes = int(self.config.snapshot_chunk_mb) << 20
         notify = self.on_snapshot
         self.on_snapshot = None
+        # the scales of a quantized save come from the ckpt_pack_blocks
+        # kernel for leaves on the card: enqueued on the compute stream
+        # BEFORE the snapshot's ready event, so they read exactly the
+        # values the snapshot copies, and brought to the host before
+        # notify() lets the trainer update the state in place
+        dev_amax = (quant.launch_amax(flatten(state))
+                    if self.config.quantize else {})
         progress = None
         fill_thread = None
         if chunk_bytes:
@@ -353,11 +370,21 @@ class FastPersistCheckpointer:
                 state, arena=self._arena, track_dirty=track,
                 dirty_block=self.config.dirty_block,
                 device_dirty=device_dirty)
+            dev_amax = quant.amax_to_host(dev_amax)
             if notify is not None:
                 notify()
         arena_reused = bool(self._arena and self._arena.last_reused)
+        stream_bytes = manifest.total_bytes     # before quantization
         manifest.extras = extras or {}
         gen = os.urandom(4).hex()
+        quantize_s = 0.0
+        if self.config.quantize:
+            t_q = time.perf_counter()
+            ex = manifest.extras
+            manifest, buffers = quant.quantize_stream(manifest, buffers,
+                                                      amax=dev_amax)
+            manifest.extras.update(ex)
+            quantize_s = time.perf_counter() - t_q
         # delta eligibility (DESIGN.md §9): tracking produced a valid
         # dirty set (arena layout hit), the previous save is durably
         # committed AND is the image resident in the arena, and the
@@ -553,14 +580,16 @@ class FastPersistCheckpointer:
                           else None,
                           d2h_bytes=(self._arena.last_d2h_bytes
                                      if self._arena is not None
-                                     else manifest.total_bytes),
+                                     else stream_bytes),
                           snapshot_seconds=(progress.seconds
                                             if progress is not None
                                             else ser_s),
                           snapshot_chunks=(progress.n_chunks
                                            if progress is not None else 0),
                           delta_striped=(None if dplan is None
-                                         else not delta_single))
+                                         else not delta_single),
+                          quantize_seconds=quantize_s,
+                          device_amax=dev_amax)
         if stats.delta is not None:
             # the engine stamps this dict into the COMMIT marker, so it
             # must stay the COMPLETE table (chain resolution + replay
@@ -626,11 +655,18 @@ class FastPersistCheckpointer:
             return f.read(extent["length"])
 
     def _materialize(self, manifest: Manifest, stream, like):
-        """Shared tail of every load path: rebuild tensors from an
-        assembled stream. With a memoryview stream the tensors are
-        zero-copy views into it (arena lifetime rule, DESIGN.md §7)."""
+        """Shared tail of every load path: (de)quantize + rebuild tensors
+        from an assembled stream. With a memoryview stream the tensors
+        are zero-copy views into it (arena lifetime rule, DESIGN.md §7);
+        dequantized tensors are new storage."""
         if manifest.extras.get("quantized"):
-            raise NotImplementedError(_QUANT_TODO)
+            t0 = time.perf_counter()
+            named = quant.dequantize_named(deserialize(manifest, stream),
+                                           manifest)
+            self.last_dequantize_seconds = time.perf_counter() - t0
+            if like is not None:
+                return unflatten(like, named), manifest
+            return named, manifest
         return deserialize(manifest, stream, like=like), manifest
 
     def load(self, step: int, like=None, verify: bool = True,

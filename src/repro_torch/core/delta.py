@@ -33,8 +33,8 @@ This module is the core of that subsystem:
     plan's §7 ``stripe_ranges`` carve of the packed stream.
   * :func:`build_delta` — packs the dirty spans of a serialized stream
     into the delta payload buffers the existing partition/writer
-    machinery then stripes to disk. (The reference's optional int8
-    span encoding is not ported yet and raises.)
+    machinery then stripes to disk, optionally int8-quantizing float
+    spans (``quant.py`` blockwise scheme — lossy, opt-in).
   * :func:`apply_delta` — the restore half: decode one generation's
     packed spans onto the reassembled base stream (replay order is
     keyframe first, then deltas oldest→newest, so the newest write of
@@ -53,8 +53,10 @@ from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 import zlib
 
+from repro_torch.core.serializer import store_dtype
 
 #: dirty-compare granularity (bytes). One page: fine enough that a
 #: single touched embedding row does not drag a whole tensor into the
@@ -244,30 +246,48 @@ def assign_span_shards(extents, spans: Sequence[DeltaSpan]
 
 
 # ------------------------------------------------------------- encoding
-#: the reference's int8 delta spans wait for the quantized-save slice
-_Q8_TODO = ("int8-quantized delta spans (delta_quantize) are not ported "
-            "yet: ROADMAP.md queue A item 4, quantized saves")
-
-
 def encode_span(raw, dtype: str, quantize: bool
                 ) -> Tuple[np.ndarray, str]:
-    """``(payload_bytes, enc)`` for one dirty span: the raw bytes.
-    ``quantize`` (the reference's lossy ``q8`` encoding) is not ported."""
-    if quantize:
-        raise NotImplementedError(_Q8_TODO)
-    return _byte_view(np.frombuffer(raw, np.uint8)), _RAW
+    """``(payload_bytes, enc)`` for one dirty span. ``q8`` (int8 blocks
+    + float32 per-block scales, quant.py layout) is used only when the
+    span is a whole number of quantizable elements AND the packed form
+    is actually smaller; everything else ships raw."""
+    from repro_torch.core import quant
+    raw8 = _byte_view(np.frombuffer(raw, np.uint8))
+    if quantize and dtype in quant._QUANTIZABLE:
+        itemsize = store_dtype(dtype).itemsize
+        if raw8.size >= itemsize and raw8.size % itemsize == 0:
+            values = quant._stream_values(raw8, dtype)
+            q, scale = quant._blockwise(values)
+            packed_len = q.nbytes + scale.nbytes
+            if packed_len < raw8.size:
+                out = np.empty(packed_len, np.uint8)
+                out[:q.nbytes] = q.view(np.uint8)
+                out[q.nbytes:] = scale.reshape(-1).view(np.uint8)
+                return out, _Q8
+    return raw8, _RAW
 
 
 def decode_span(payload, enc: str, dtype: str, length: int) -> bytes:
     """Inverse of :func:`encode_span`: raw stream bytes of ``length``."""
-    if enc == _Q8:
-        raise NotImplementedError(_Q8_TODO)
-    if enc != _RAW:
+    from repro_torch.core import quant
+    if enc == _RAW:
+        if len(payload) != length:
+            raise IOError(f"checkpoint corruption: raw delta span is "
+                          f"{len(payload)} bytes, expected {length}")
+        return bytes(payload)
+    if enc != _Q8:
         raise IOError(f"unknown delta span encoding {enc!r}")
-    if len(payload) != length:
-        raise IOError(f"checkpoint corruption: raw delta span is "
-                      f"{len(payload)} bytes, expected {length}")
-    return bytes(payload)
+    n = length // store_dtype(dtype).itemsize
+    nblocks = -(-n // quant.BLOCK)
+    buf = memoryview(payload)
+    if len(buf) != n + 4 * nblocks:
+        raise IOError(f"checkpoint corruption: q8 delta span is "
+                      f"{len(buf)} bytes, expected {n + 4 * nblocks}")
+    q = np.frombuffer(buf[:n], np.int8)
+    scale = np.frombuffer(buf[n:], np.float32)
+    vals = quant._deblock(q, scale, dtype)
+    return vals.view(torch.uint8).numpy().tobytes()
 
 
 # ----------------------------------------------------------- build side
@@ -283,7 +303,7 @@ def build_delta(records, view, dirty: Sequence[Tuple[int, int]], *,
             FULL stream buffers.
         dirty: ``(offset, length)`` spans from the arena's tracker —
             guaranteed not to cross record boundaries.
-        quantize: int8-quantize float spans (not ported: raises).
+        quantize: int8-quantize float spans (lossy).
 
     Returns:
         ``(plan, payloads)`` where ``payloads`` is the list of packed

@@ -52,7 +52,9 @@ def main(argv=None):
                          "byte ranges that changed since the previous "
                          "save (1 = every save is full)")
     ap.add_argument("--delta-quantize", action="store_true",
-                    help="int8-quantize delta spans (not ported: raises)")
+                    help="int8-quantize delta spans (lossy; blockwise "
+                         "absmax scales, DESIGN.md §9) — keyframes stay "
+                         "full-precision")
     ap.add_argument("--delta-stripe-min-mb", type=int, default=8,
                     help="stripe a delta generation across the full "
                          "writer/volume fan-out once its packed payload "

@@ -1,6 +1,10 @@
 """What the port's engine does not do yet says so: every option of the
-reference outside this slice raises NotImplementedError naming its
-ROADMAP.md item, instead of degrading silently."""
+reference outside the ported slices raises NotImplementedError naming
+its ROADMAP.md item, instead of degrading silently. Quantized saves are
+ported: their cases here hold that they round-trip and raise on a
+corrupted payload like every other save."""
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -19,12 +23,34 @@ def _state():
             "b": torch.ones(8, dtype=torch.bfloat16)}
 
 
+def _flip_byte(step_dir):
+    with open(os.path.join(step_dir, "shard_000.bin"), "r+b") as f:
+        f.seek(100)
+        b = f.read(1)
+        f.seek(100)
+        f.write(bytes([b[0] ^ 0xFF]))
+
+
 @pytest.mark.parametrize("fp", [dict(quantize=True),
                                 dict(delta_quantize=True, keyframe_every=2)])
 def test_quantized_saves_raise(tmp_path, fp):
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        CheckpointEngine(CheckpointSpec(str(tmp_path),
-                                        fp=FastPersistConfig(**fp)))
+    """Quantized keyframes and q8 delta spans round-trip within the
+    blockwise bound (amax/254 per block; ``w`` is one block), and a
+    flipped payload byte raises instead of loading."""
+    eng = CheckpointEngine(CheckpointSpec(str(tmp_path),
+                                          fp=FastPersistConfig(**fp)))
+    state = _state()
+    eng.save(state, 1)
+    state["w"] = state["w"] * -0.5          # a q8 delta span for step 2
+    eng.save(state, 2)
+    got, man = eng.load(2, device="cpu")
+    assert man.extras.get("quantized", False) == bool(fp.get("quantize"))
+    err = (got["w"] - state["w"]).abs().max()
+    assert 0 < err <= state["w"].abs().max() / 254
+    assert torch.equal(got["b"], state["b"])
+    _flip_byte(os.path.join(str(tmp_path), "ckpt_00000002"))
+    with pytest.raises(IOError, match="corruption"):
+        eng.load(2)
 
 
 @pytest.mark.parametrize("spec", [dict(upload_store="bucket"),
@@ -58,10 +84,17 @@ def test_other_tiers_and_owned_reads_raise(tmp_path):
 
 
 def test_reference_quantized_checkpoint_raises_on_load(tmp_path):
-    RefEngine(RefSpec(str(tmp_path), fp=RefFP(quantize=True))).save(
-        {"w": np.arange(4096, dtype=np.float32)}, 1)
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        CheckpointEngine(CheckpointSpec(str(tmp_path))).load()
+    """The port loads the reference's quantized checkpoint to the values
+    the reference loads, and raises on a corrupted one."""
+    ref = RefEngine(RefSpec(str(tmp_path), fp=RefFP(quantize=True)))
+    ref.save({"w": np.arange(4096, dtype=np.float32) / 7}, 1)
+    want, _ = ref.load(1)
+    got, man = CheckpointEngine(CheckpointSpec(str(tmp_path))).load(1)
+    assert man.extras["quantized"]
+    assert got["w"].numpy().tobytes() == np.asarray(want["w"]).tobytes()
+    _flip_byte(os.path.join(str(tmp_path), "ckpt_00000001"))
+    with pytest.raises(IOError, match="corruption"):
+        CheckpointEngine(CheckpointSpec(str(tmp_path))).load(1)
 
 
 def test_retention_raises(tmp_path):
