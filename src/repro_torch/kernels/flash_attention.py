@@ -2,11 +2,13 @@
 (CUDA C++, sm_90a, ``csrc/flash_attention.cu``).
 
 Replaces ``repro.kernels.flash_attention.flash_attention`` (TPU Pallas).
-Forward only, as the reference. The source says what bounds it and how
-its design follows. The wrapper runs the plain PyTorch version
-(``repro_torch.kernels.ref.flash_attention_plain``) for CPU tensors
-only; for a CUDA tensor it launches the kernel or raises, and counts the
-launch in ``flash_attention.launches``.
+Forward only, as the reference. bfloat16 inputs run on the tensor cores
+(P rounded to bfloat16 for P·V, within the bfloat16 tolerance 2e-2);
+float32 inputs keep f32 FMAs, for the float32 tolerance 2e-5. The source
+says what bounds each body and how its design follows. The wrapper runs
+the plain PyTorch version (``repro_torch.kernels.ref.flash_attention_plain``)
+for CPU tensors only; for a CUDA tensor it launches the kernel or
+raises, and counts the launch in ``flash_attention.launches``.
 """
 from __future__ import annotations
 
@@ -28,13 +30,26 @@ def _bind(lib):
         + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_float,
                                  ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.flash_attention_smem_bytes.restype = ctypes.c_longlong
+
+
+def smem_bytes(hd: int, dtype) -> int:
+    """Dynamic shared memory per block of the body that takes (hd, dtype)
+    (builds the kernel on first use)."""
+    return build.load("flash_attention", _bind).flash_attention_smem_bytes(
+        hd, _CODES[dtype])
 
 
 def _rows(t):
-    """``t`` with a contiguous last dimension (the kernel walks the other
-    three by stride: the model's (B, L, H, hd) tensors swapped to
-    (B, H, L, hd) are read in place, without a copy)."""
-    return t if t.stride(-1) == 1 else t.contiguous()
+    """``t`` with a contiguous last dimension and 16-byte aligned rows
+    (the kernel walks the other three by stride and copies rows in 16-byte
+    pieces: the model's (B, L, H, hd) tensors swapped to (B, H, L, hd) are
+    read in place, without a copy); anything else is copied once."""
+    if t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
+            s * t.element_size() % 16 == 0 for s in t.stride()[:3]):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, cap=None):

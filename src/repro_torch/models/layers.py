@@ -229,8 +229,12 @@ def ssd_chunked(x, dt, A, B_, C_, D, chunk, ssd_kernel=None):
         return t.reshape(b, nc, chunk, *t.shape[2:])
 
     xc, dAc = ch(xb), ch(dA)
-    Bc = ch(B_.float()).repeat_interleave(rep, dim=3)     # (b,nc,cl,h,n)
-    Cc = ch(C_.float()).repeat_interleave(rep, dim=3)
+    if g == 1:     # one group: every head reads it in place (stride 0)
+        Bc = ch(B_.float()).expand(b, nc, chunk, h, n)    # (b,nc,cl,h,n)
+        Cc = ch(C_.float()).expand(b, nc, chunk, h, n)
+    else:
+        Bc = ch(B_.float()).repeat_interleave(rep, dim=3)
+        Cc = ch(C_.float()).repeat_interleave(rep, dim=3)
 
     dA_cs = torch.cumsum(dAc, dim=2)                      # (b,nc,cl,h)
 
