@@ -12,7 +12,8 @@ Phases, each of which exits non-zero on failure:
 3. kernels: every kernel held against its plain PyTorch version on the
    card — ckpt_pack bit-exact at the shapes of the main path plus ragged,
    NaN, ±0.0, all-clean and one-dirty cases; flash_attention (bf16 on
-   its tensor-core body, f32 on its f32-FMA body, every variant in both)
+   its tensor-core body, f32 on its f32-FMA body, every variant in both;
+   SDPA timed on the path's bf16 and f32 inputs)
    and ssd_intra_chunk (B and C per head, from one group expanded over
    the heads as the path passes them, two groups repeated, ragged
    chunks) within the reference's tolerances at the paths' shapes and
@@ -45,7 +46,22 @@ Phases, each of which exits non-zero on failure:
    through the engine, the kernel forward at batch 4 x 2048 against the
    plain hook (ssd_intra_chunk launch counts read around it), a second,
    warm forward timed beside the first with B4's share of it, and a
-   batch-4 x 512 prefill + 16 greedy decode steps against the forward.
+   batch-4 x 512 prefill + 16 greedy decode steps against the forward;
+9. the durability tiers: ``stablelm_1_6b`` at its published widths and
+   the deepest depth (at least 2 layers) at which keyframe + delta fit
+   twice on the disk (local, object store; within 75 % of the free disk
+   and 90 % of phase 4's peak) and twice in memory (two peers holding
+   their replicas in a tmpfs directory; within 40 % of the available
+   memory),
+   trained 2 steps through ``fastpersist-tiered-pipelined`` with
+   device-dirty deltas (ckpt_pack_dirty_blocks launches counted on the
+   delta), two peers in distinct failure domains and retention
+   ``keep_last=1``; the local directory lost, a restore from a peer onto
+   the card, then (local lost again, peers gone) one from the store,
+   each bit-equal to the state saved at that step; the embedding served
+   from the store through the read cache, cold and warm; and the
+   keyframe read as 4 ranks' owned spans, allgathered onto the card,
+   bit-equal to ``load``.
 
 The last three lines of standard output are one JSON object of
 per-kernel numbers, the card's name and power limit, and one JSON
@@ -434,12 +450,21 @@ def check_attention(device) -> dict:
     graph_ms = _graph_ms(lambda: ops.flash_attention(q, k, v))
     plain_ms = _cuda_ms(lambda: flash_attention_plain(q, k, v))
     q32, k32, v32 = (t.float() for t in (q, k, v))
-    print(f"  time flash_attention f32 causal {ATTN} (its f32-FMA body, the "
-          f"f32 scoring in phase 6): "
-          f"{_cuda_ms(lambda: ops.flash_attention(q32, k32, v32)):.4f} ms",
-          flush=True)
-    del q32, k32, v32
+
     # the yardstick only: the port never calls it
+    def sdpa32():
+        return F.scaled_dot_product_attention(q32, k32, v32, is_causal=True)
+    f32 = {"ms": _cuda_ms(lambda: ops.flash_attention(q32, k32, v32)),
+           "graph_ms": _graph_ms(lambda: ops.flash_attention(q32, k32, v32)),
+           "library_ms": _cuda_ms(sdpa32),
+           "library_graph_ms": _graph_ms(sdpa32)}
+    print(f"  time flash_attention f32 causal {ATTN} (its f32-FMA body, the "
+          f"f32 scoring in phase 6): {f32['ms']:.4f} ms (in a CUDA graph "
+          f"{f32['graph_ms']:.4f} ms); SDPA on the same f32 inputs "
+          f"{f32['library_ms']:.4f} ms (in a CUDA graph "
+          f"{f32['library_graph_ms']:.4f} ms)", flush=True)
+    del q32, k32, v32
+
     def sdpa():
         return F.scaled_dot_product_attention(q, k, v, is_causal=True)
     library_ms = _cuda_ms(sdpa)
@@ -546,7 +571,9 @@ def _kernel_records(trainer, dirty_block: int) -> int:
 def main_path(device, steps: int, batch: int, seq: int):
     """Phases 4 and 5. Returns the ckpt_pack launch counts of the main
     path, the model config, the restored state with the trainer's next
-    batch (for phase 6) and the extras a save of it carries (phase 7)."""
+    batch (for phase 6), the extras a save of it carries (phase 7) and
+    the bytes its two generations held on the disk together (phase 9's
+    disk budget)."""
     import dataclasses
     import gc
 
@@ -662,7 +689,8 @@ def main_path(device, steps: int, batch: int, seq: int):
               f"position {position}", flush=True)
         tr2.engine.close()
         return (launches, cfg, tr2.state, tr2.data.peek(tr2.data.position),
-                {"step": step, "data": tr2.data.state()})
+                {"step": step, "data": tr2.data.state()},
+                first.total_bytes + second.total_bytes)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1161,6 +1189,227 @@ def run_mamba2(device, kernel_ms: float):
     return launches
 
 
+# ---------------------------------------------------------------- phase 9
+#: the two peers keep their replicas in memory, as a peer's RAM tier
+#: would: a tmpfs directory; the local checkpoint and the object store
+#: are on the disk
+PEER_ROOT = "/dev/shm"
+#: the served tensor of phase 9 (100352 x 2048 bf16) and the read cache
+SERVED, SERVE_CACHE_MB = ".params/embed", 512
+
+
+def _tier_depth(cfg, disk_budget: float, mem_budget: float) -> int:
+    """The deepest n_layers at which keyframe + delta fit twice on the
+    disk (local and object store) within ``disk_budget`` bytes and twice
+    in memory (the two peers) within ``mem_budget`` bytes. Both
+    generations are counted at the full state's size (14 B per
+    parameter: bf16 param, f32 master, m, v); the delta is ~91 % of it,
+    since Adam changes master, m and v every step."""
+    per_layer = cfg._layer_params(0) * 14
+    fixed = cfg.param_count() * 14 - cfg.n_layers * per_layer
+    state = min(disk_budget, mem_budget) / 4     # 2 copies x (K + D)
+    return min(cfg.n_layers, int((state - fixed) // per_layer))
+
+
+def _same_state(what, got, want):
+    """Fail unless two {name: tensor} sets hold the same records with the
+    same bits (on the card)."""
+    import torch
+    got, want = dict(got), dict(want)
+    if sorted(got) != sorted(want):
+        fail(f"{what}: other records than the saved state")
+    for name, b in want.items():
+        a = got[name]
+        if a.device.type != "cuda":
+            fail(f"{what}: {name} is on {a.device}, not on the card")
+        if a.dtype != b.dtype or a.shape != b.shape \
+                or not torch.equal(_ints(a.detach()), _ints(b.detach())):
+            fail(f"{what}: {name} is not bit-equal to the saved state")
+
+
+def tiers(device, disk_peak: int) -> int:
+    """Phase 9: the durability tiers on the card. ``disk_peak``: the
+    bytes phase 4's generations held on the disk; this phase keeps its
+    own disk peak under 90 % of it, so the run's peak disk use stays
+    phase 4's. Returns the ckpt_pack_dirty_blocks launches of the tiered
+    delta save."""
+    import dataclasses
+    import gc
+    import os
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.checkpointer import (FastPersistConfig,
+                                               allgather_owned)
+    from repro_torch.core.engine import CheckpointEngine, CheckpointSpec
+    from repro_torch.core.partition import Topology
+    from repro_torch.core.retention import RetentionPolicy
+    from repro_torch.core.serializer import deserialize
+    from repro_torch.kernels import ckpt_pack as cp
+    from repro_torch.train.trainer import (CheckpointPolicy, Trainer,
+                                           TrainerConfig)
+    from repro_torch.tree import flatten
+
+    cfg = get_config("stablelm_1_6b")
+    if not os.path.isdir(PEER_ROOT):
+        fail(f"no {PEER_ROOT} for the peers' in-memory replicas")
+    root = tempfile.mkdtemp(prefix="chip_smoke_tiers_")
+    peer_root = tempfile.mkdtemp(prefix="chip_smoke_peers_", dir=PEER_ROOT)
+    try:
+        free = shutil.disk_usage(root).free
+        mem = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+        disk_budget = min(0.75 * free, 0.9 * disk_peak)
+        n = _tier_depth(cfg, disk_budget, 0.4 * mem)
+        print(f"phase 9: durability tiers; {free} B free on the disk "
+              f"(phase 4 held {disk_peak} B), {mem} B of memory available "
+              f"(the peers' replicas live in {PEER_ROOT}); full state "
+              f"{cfg.param_count() * 14} B", flush=True)
+        if n < 2:
+            fail(f"keyframe + delta of a 2-layer {cfg.name} do not fit "
+                 f"twice in {disk_budget:.0f} B of disk and twice in "
+                 f"{0.4 * mem:.0f} B of memory")
+        print(f"  CUT: n_layers {cfg.n_layers} -> {n} (depth {n}) so "
+              f"keyframe + delta fit twice on the disk (local, object "
+              f"store) in min(75 % of the free disk, 90 % of phase 4's "
+              f"peak) and twice in memory (2 peers) in 40 % of the "
+              f"available memory (widths unchanged)" if n < cfg.n_layers
+              else f"  depth {n}: no cut", flush=True)
+        cfg = dataclasses.replace(cfg, n_layers=n)
+        local, bucket = (os.path.join(root, d) for d in ("local", "bucket"))
+        peer_dirs = [os.path.join(peer_root, f"peer{i}") for i in range(2)]
+        pol = CheckpointPolicy(
+            directory=local, every=1,
+            backend="fastpersist-tiered-pipelined", keyframe_every=2,
+            upload=bucket, replicate_peers=[f"peer{i}={d}@rack{i}" for
+                                            i, d in enumerate(peer_dirs)],
+            replication_factor=2, failure_domain="rack-trainer",
+            retention=RetentionPolicy(keep_last=1), restore_readers="auto",
+            fp=FastPersistConfig(device_dirty=True, topology=Topology(
+                dp_degree=4, ranks_per_node=4)))
+        tcfg = TrainerConfig(model=cfg, steps=STEPS, global_batch=BATCH,
+                             seq_len=SEQ, checkpoint=pol, log_every=100)
+        tr = Trainer(tcfg, device=device)
+        tr.init_state()
+        n_kernel = _kernel_records(tr, pol.fp.dirty_block)
+        _zero_counts()             # just before the tiered path
+        t0 = time.perf_counter()
+        tr.run()                   # drains the upload and peer tiers too
+        wall = time.perf_counter() - t0
+        launches = cp.ckpt_pack_dirty_blocks.launches
+        print(f"  trained {cfg.name} ({n} layers) {STEPS} steps of "
+              f"{BATCH} x {SEQ} through {pol.backend} in {wall:.2f} s, "
+              f"uploads and replication drained", flush=True)
+        for h in tr.saves:
+            st, up, rep = h.result(), h.wait_uploaded(), h.wait_replicated()
+            print(f"  save step {st.step}: "
+                  f"{'delta' if st.delta else 'keyframe'} "
+                  f"{st.total_bytes} B, persist {st.seconds:.3f} s + commit "
+                  f"{st.commit_seconds:.3f} s; upload {up.bytes_uploaded} B "
+                  f"in {up.seconds:.3f} s ({up.n_uploaded} objects, "
+                  f"{up.n_deduped} deduped); replication {rep.bytes_sent} B "
+                  f"to {rep.replicas} peers in {rep.seconds:.3f} s", flush=True)
+            if not (up.committed and rep.committed and rep.replicas == 2):
+                fail(f"step {st.step} is not durable on both tiers")
+        if [h.result().delta is not None for h in tr.saves] != [False, True]:
+            fail("the tiered chain is not keyframe + delta")
+        print(f"  ckpt_pack_dirty_blocks launches on the tiered delta: "
+              f"{launches} (records through the kernel: {n_kernel})",
+              flush=True)
+        if launches != n_kernel:
+            fail(f"ckpt_pack_dirty_blocks launched {launches} times on the "
+                 f"tiered delta; expected {n_kernel}")
+        tr._retain.after_commit()
+        print(f"  retention keep_last=1: collected steps "
+              f"{tr._retain.deleted}, local steps {tr.engine.steps()} (the "
+              f"delta's keyframe stays)", flush=True)
+        live = dict(flatten(tr.state))
+        position = tr.data.position
+        tr.engine.close()
+        del tr
+        gc.collect()
+
+        def restore(tier):
+            shutil.rmtree(local)
+            t = Trainer(tcfg, device=device)
+            t0 = time.perf_counter()
+            step = t.restore(tier=tier)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            hs = t.engine.last_hydrate_stats
+            print(f"  restore from the {tier} tier: step {step} in "
+                  f"{wall:.2f} s, of which hydration {hs.seconds:.2f} s "
+                  f"({hs.fetched_bytes} B fetched in {hs.n_fetched} objects,"
+                  f" {hs.reused_bytes} B reused, steps {hs.steps})",
+                  flush=True)
+            if step != STEPS or t.data.position != position:
+                fail(f"{tier} restore gave step {step} at data position "
+                     f"{t.data.position}; expected {STEPS} at {position}")
+            if hs.fetched_bytes == 0 or hs.reused_bytes != 0:
+                fail(f"{tier} restore did not move the bytes")
+            _same_state(f"{tier} restore", flatten(t.state), live)
+            print(f"  {len(live)} records bit-equal on the card to the "
+                  f"state saved at step {step}", flush=True)
+            return t
+
+        restore("peer").engine.close()
+        gc.collect()
+        for d in peer_dirs:        # the peers are lost too
+            shutil.rmtree(d)
+        t = restore("remote")
+        del live
+        t.state = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # owned reads: 4 simulated ranks of the keyframe, ZeRO-1 spans
+        t0 = time.perf_counter()
+        reads = [t.engine.load_owned(r, 4, step=1, ownership="zero1")
+                 for r in range(4)]
+        t_read = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        stream = allgather_owned(reads)
+        owned = {k: v.to(device) for k, v in
+                 deserialize(reads[0].manifest, stream).items()}
+        torch.cuda.synchronize()
+        t_gather = time.perf_counter() - t0
+        keyframe, _ = t.engine.load(1, device=device)
+        _same_state("owned-read allgather", owned, keyframe)
+        print(f"  owned reads of the keyframe, 4 ranks (zero1): "
+              f"{[r.nbytes for r in reads]} B in {t_read:.2f} s; allgather "
+              f"onto the card {t_gather:.2f} s; {len(owned)} records "
+              f"bit-equal to load()", flush=True)
+        del owned, stream, reads
+        t.engine.close()
+
+        # serving: one tensor straight off the store, cold then warm
+        eng = CheckpointEngine(CheckpointSpec(
+            directory=os.path.join(root, "serve"), upload_store=bucket,
+            serve_cache_mb=SERVE_CACHE_MB))
+        for kind in ("cold", "warm"):
+            got = eng.load_tensor(SERVED, step=1, tier="remote",
+                                  device=device)
+            torch.cuda.synchronize()
+            st = eng.last_serve[-1]
+            print(f"  served {SERVED} {tuple(got.shape)} {got.dtype} from "
+                  f"the store ({kind}, cache {SERVE_CACHE_MB} MiB): "
+                  f"{st.tensor_bytes} B in {st.seconds:.3f} s, "
+                  f"{st.fetched_bytes} B fetched, {st.cache_hit_bytes} B "
+                  f"from the cache, {st.n_spans} spans", flush=True)
+            _same_state(f"served {SERVED} ({kind})", {SERVED: got},
+                        {SERVED: keyframe[SERVED]})
+            if kind == "warm" and (st.fetched_bytes != 0 or
+                                   st.cache_hit_bytes < st.tensor_bytes):
+                fail("the warm served read did not come from the cache")
+        eng.close()
+        if eng.steps():
+            fail("serving a tensor hydrated a local checkpoint")
+        del keyframe, got
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(peer_root, ignore_errors=True)
+
+
 def main():
     argparse.ArgumentParser(
         description=__doc__.split("\n")[0],
@@ -1212,8 +1461,8 @@ def main():
               f"{e['bound_ms']:.4f} ms by {e['bound_by']}: {e['bytes']} B"
               f"{per_head}, {e['flops']} FLOP)", flush=True)
     torch.cuda.empty_cache()
-    launches, cfg, state, batch, extras = main_path(device, STEPS, BATCH,
-                                                    SEQ)
+    launches, cfg, state, batch, extras, disk_peak = main_path(
+        device, STEPS, BATCH, SEQ)
     ms = {e["name"]: e["ms"] for e in entries}
     launches["flash_attention"] = score_restored(cfg, state, batch,
                                                  ms["flash_attention"])
@@ -1225,6 +1474,8 @@ def main():
     quantized_chain(cfg, device)
     torch.cuda.empty_cache()
     launches["ssd_intra_chunk"] = run_mamba2(device, ms["ssd_intra_chunk"])
+    torch.cuda.empty_cache()
+    tiers(device, disk_peak)
     for e in entries:
         e["launches"] = launches[e["name"]]
     print(f"every phase passed in {time.perf_counter() - t_start:.1f} s",

@@ -31,9 +31,9 @@ A copy of ``repro.core.checkpointer`` on torch tensors: the on-disk
 format is the reference's byte for byte. Quantized saves (``quantize``,
 int8 per-block, lossy) take each block's scale from the
 ``ckpt_pack_blocks`` CUDA kernel for state on the card, launched before
-the snapshot is released to the trainer. Not ported yet, and raising
-``NotImplementedError``: the per-rank owned reads behind ``load_owned``
-(ROADMAP.md queue A item 2).
+the snapshot is released to the trainer. ``read_owned`` (one rank's
+owned spans, DESIGN.md §7) and :func:`allgather_owned` read the same
+bytes as the reference's.
 """
 from __future__ import annotations
 
@@ -45,7 +45,7 @@ import warnings
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field, replace
 from itertools import groupby
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -960,6 +960,69 @@ class FastPersistCheckpointer:
                             volume_roots, dest)
         return self._materialize(manifest, dest, like)
 
+    def read_owned(self, step: int, rank: int, n_readers: int,
+                   ownership: Union[None, str, dict] = None,
+                   verify: bool = True,
+                   directory: Optional[str] = None,
+                   marker: Optional[dict] = None,
+                   volume_roots: Optional[Sequence[str]] = None,
+                   read_plan: Optional[ReadPlan] = None) -> "OwnedRead":
+        """ONE rank's half of the distributed restore: read only the
+        spans this rank owns (``ownership=None`` → balanced stripe;
+        ``"zero1"`` → the ZeRO-1 projection from
+        ``repro_torch.sharding.specs``; a dict → explicit per-tensor
+        ownership) into a packed buffer. The returned
+        :class:`OwnedRead` exposes the spans for the allgather
+        (:func:`allgather_owned` is the single-host stand-in). Shards
+        fully covered by this rank's spans are CRC-verified; partially
+        covered shards cannot be (whole-shard CRCs)."""
+        d = directory if directory is not None else self.path(step)
+        if marker is None:
+            marker = layout.read_commit_marker(d)
+        manifest, plan, index, meta = self._read_manifest(step, directory)
+        if (marker or {}).get("delta") or meta.get("delta"):
+            raise NotImplementedError(
+                f"read_owned on a delta generation (step {step}) is not "
+                f"supported — its shards hold a packed dirty-span "
+                f"payload, not the tensor stream; load() replays the "
+                f"chain, or point at a keyframe step")
+        if read_plan is None:
+            if ownership == "zero1":
+                from repro_torch.sharding.specs import zero1_ownership
+                ownership = zero1_ownership(manifest.records, n_readers)
+            read_plan = make_read_plan(plan, index, n_readers, ownership)
+        spans = read_plan.spans_of(rank)
+        owned = sum(s.length for s in spans)
+        # a PRIVATE buffer, not the arena: the single-host allgather
+        # needs every rank's OwnedRead alive at once, and on a real DP
+        # group each rank is its own process anyway
+        dest = memoryview(bytearray(owned))
+        rcfg = self.config.writer
+        if rcfg.checksum != bool(verify):
+            rcfg = replace(rcfg, checksum=bool(verify))
+        by_shard = {int(e["shard_index"]): e for e in plan["extents"]}
+        collected: Dict[int, list] = {}
+        pos = 0
+        for shard_index, group in groupby(spans,
+                                          key=lambda s: s.shard_index):
+            group = list(group)
+            e = by_shard[shard_index]
+            path, triples = self._span_file(d, e, marker, volume_roots,
+                                            group)
+            packed = []
+            for (file_off, _stream_off, length) in triples:
+                packed.append((file_off, pos, length))
+                pos += length
+            st = read_stream(path, packed, dest, rcfg)
+            if st.span_crcs is not None:
+                collected.setdefault(shard_index, []).extend(
+                    (s.shard_offset, s.length, c)
+                    for s, c in zip(group, st.span_crcs))
+        if verify:
+            self._verify_span_crcs(plan["extents"], collected)
+        return OwnedRead(rank=rank, step=step, manifest=manifest,
+                         spans=list(spans), buffer=dest[:owned])
+
     def load_tensor(self, step: int, name: str,
                     directory: Optional[str] = None,
                     marker: Optional[dict] = None,
@@ -1015,3 +1078,72 @@ class FastPersistCheckpointer:
         rather than crashing the restore path."""
         steps = layout.committed_steps(self.directory, legacy_ok=True)
         return steps[-1] if steps else None
+
+
+# ====================================================== owned-span reads
+@dataclass
+class OwnedRead:
+    """One reader rank's slice of a checkpoint — the bytes a DP rank
+    loads BEFORE the paper's allgather. ``buffer`` packs the rank's
+    spans contiguously in stream order; ``spans`` records where each
+    piece belongs in the full stream. The buffer is private to this
+    read (every rank's OwnedRead must be alive at once for the
+    single-host allgather), unlike the shared-arena full parallel
+    load."""
+    rank: int
+    step: int
+    manifest: Manifest
+    spans: List[ReadSpan]          # stream order
+    buffer: memoryview             # packed owned bytes
+
+    @property
+    def nbytes(self) -> int:
+        return sum(s.length for s in self.spans)
+
+    def chunks(self) -> Iterator[Tuple[int, memoryview]]:
+        """(stream_offset, bytes) pieces — the rank's allgather payload."""
+        off = 0
+        for s in self.spans:
+            yield s.stream_offset, self.buffer[off:off + s.length]
+            off += s.length
+
+    def tensor_fragments(self) -> Dict[str, List[Tuple[int, memoryview]]]:
+        """{tensor name: [(tensor-relative byte offset, bytes), ...]}
+        for every record this rank holds bytes of — e.g. rank *r*'s
+        ZeRO-1 row block, ready to ``decode_record`` after a local
+        concatenation."""
+        out: Dict[str, List[Tuple[int, memoryview]]] = {}
+        recs = sorted(self.manifest.records, key=lambda r: r.offset)
+        starts = [r.offset for r in recs]
+        from bisect import bisect_right
+        for stream_off, mv in self.chunks():
+            i = max(0, bisect_right(starts, stream_off) - 1)
+            while i < len(recs) and recs[i].offset < stream_off + len(mv):
+                r = recs[i]
+                lo = max(stream_off, r.offset)
+                hi = min(stream_off + len(mv), r.offset + r.nbytes)
+                if hi > lo:
+                    out.setdefault(r.name, []).append(
+                        (lo - r.offset,
+                         mv[lo - stream_off:hi - stream_off]))
+                i += 1
+        return out
+
+
+def allgather_owned(reads: Sequence[OwnedRead]) -> memoryview:
+    """Single-host stand-in for the paper's §4.2 allgather: concatenate
+    every rank's owned spans back into the full checkpoint stream (on a
+    real DP group this is one collective over the same payloads).
+    Raises if the union of spans does not cover the stream exactly."""
+    assert reads, "allgather of nothing"
+    total = reads[0].manifest.total_bytes
+    out = memoryview(bytearray(total))
+    covered = 0
+    for rd in reads:
+        for stream_off, mv in rd.chunks():
+            out[stream_off:stream_off + len(mv)] = mv
+            covered += len(mv)
+    if covered != total:
+        raise IOError(f"owned reads cover {covered} of {total} bytes — "
+                      f"ranks missing from the allgather")
+    return out

@@ -13,13 +13,13 @@ A copy of ``repro.core.engine``: the same backends under the same
 registry keys (the COMMIT marker records the key, so either package
 reads the other's checkpoints), the same crash-atomic commit protocol
 (``ckpt_<step>.tmp/`` + manifest-checksummed ``COMMIT`` + atomic rename,
-:mod:`repro_torch.core.layout`) and the same snapshot-granular sync
-point. Restored tensors are placed with ``.to(device)``.
-
-Not ported yet, and raising ``NotImplementedError``: the durability
-tiers — the ``fastpersist-tiered`` backends, ``upload_store``, the peer
-tier and the serving read cache (ROADMAP.md queue A item 5) — and the
-per-rank owned reads of ``load_owned`` (queue A item 2).
+:mod:`repro_torch.core.layout`), the same snapshot-granular sync point,
+and the same durability tiers: the ``fastpersist-tiered[-pipelined]``
+backends upload each committed generation to an object store
+(DESIGN.md §8), the peer tier replicates it (§11), and
+``load(tier="remote"|"peer")`` / ``load_tensor(tier=...)`` restore or
+serve from them (§12). Restored tensors are placed with
+``.to(device)``.
 """
 from __future__ import annotations
 
@@ -37,12 +37,6 @@ from repro_torch.core.checkpointer import (FastPersistCheckpointer,
                                            FastPersistConfig, SaveStats)
 from repro_torch.core.partition import probe_volumes
 from repro_torch.tree import flatten, unflatten
-
-_TIERS_TODO = ("the durability tiers (object-store upload, peer "
-               "replication, serving read cache) are not ported yet: "
-               "ROADMAP.md queue A item 5")
-_OWNED_TODO = ("owned-span reads (load_owned / owned_only, ZeRO-1 "
-               "ownership) are not ported yet: ROADMAP.md queue A item 2")
 
 
 # ===================================================================== spec
@@ -62,10 +56,39 @@ class CheckpointSpec:
     #: None/empty → shards live in ``directory`` (single-volume layout).
     #: The manifest + global COMMIT always live under ``directory``.
     volumes: Optional[Sequence[str]] = None
-    #: durability tiers of the reference (DESIGN.md §8, §11, §12), kept
-    #: so a spec carries over; setting one raises NotImplementedError
+    #: second durability tier (DESIGN.md §8): object-store spec for the
+    #: ``fastpersist-tiered`` backends — a path / ``file://`` URL (the
+    #: mock bucket), a registered ``scheme://`` URL, or an
+    #: :class:`repro_torch.core.upload.ObjectStore` instance. Also enables
+    #: ``engine.load(tier="remote")`` hydration for any backend.
     upload_store: Optional[object] = None
+    #: per-object upload retry budget for the tiered backends
+    upload_max_retries: int = 2
+    #: peer-replication tier (DESIGN.md §11): replication targets for
+    #: ANY backend — ``[name=]store[@failure_domain]`` specs,
+    #: :class:`repro_torch.core.peer.PeerConfig` instances, or store objects.
+    #: After each local COMMIT the sealed generation (full delta chain)
+    #: is streamed to peers in the background; ``SaveHandle.
+    #: wait_replicated()`` is the peer-tier durability point and
+    #: ``engine.load(tier="peer")`` restores from the healthiest peer.
     peers: Optional[Sequence[object]] = None
+    #: replicas each checkpoint should reach (placed across distinct
+    #: failure domains when available)
+    replication_factor: int = 2
+    #: this WRITER's failure domain — placement avoids it whenever any
+    #: other usable domain exists
+    failure_domain: Optional[str] = None
+    #: per-attempt wall-clock deadline on every peer operation (seconds;
+    #: None = unbounded) — a hung peer must never wedge the replicator
+    peer_op_timeout: Optional[float] = 30.0
+    #: concurrent range-fetch workers for remote/peer hydration
+    #: (DESIGN.md §12) — the read-side mirror of the parallel restore
+    #: width; 1 = serial object-by-object download
+    hydrate_readers: int = 4
+    #: hot-shard read cache budget in MiB (DESIGN.md §12): 0 disables;
+    #: > 0 backs hydration and ``load_tensor(tier="remote"|"peer")``
+    #: with a digest-keyed LRU block cache at
+    #: ``<directory>/.serve-cache``
     serve_cache_mb: int = 0
 
 
@@ -73,7 +96,14 @@ class CheckpointSpec:
 class SaveHandle:
     """Future for one checkpoint save. Sync backends hand back handles
     that are already done; async backends complete them from the helper
-    thread. ``wait``/``result`` re-raise the save's exception."""
+    thread. ``wait``/``result`` re-raise the save's exception.
+
+    Tiered backends (DESIGN.md §8) additionally carry the save's upload
+    future: ``wait()`` is the LOCAL durability point (crash-atomic
+    commit on NVMe), :meth:`wait_uploaded` the REMOTE one (COMMIT
+    object in the store). For backends without an upload tier,
+    ``wait_uploaded`` degrades to ``wait`` and returns None.
+    """
 
     def __init__(self, step: int, backend: str):
         self.step = step
@@ -82,12 +112,22 @@ class SaveHandle:
         self._snapshotted = threading.Event()
         self._stats: Optional[SaveStats] = None
         self._exc: Optional[BaseException] = None
+        self._upload = None          # UploadTicket, attached pre-finish
+        self._replication = None     # ReplicationTicket, ditto (§11)
+
+    @classmethod
+    def completed(cls, step: int, backend: str,
+                  stats: SaveStats) -> "SaveHandle":
+        h = cls(step, backend)
+        h._finish(stats=stats)
+        return h
 
     def _finish(self, stats: Optional[SaveStats] = None,
                 exc: Optional[BaseException] = None):
         self._stats, self._exc = stats, exc
         # a finished save's snapshot is trivially over (success OR
-        # failure) — nobody may hang in wait_snapshot
+        # failure, and backends without snapshot signalling) — nobody
+        # may hang in wait_snapshot
         self._snapshotted.set()
         self._done.set()
 
@@ -99,9 +139,42 @@ class SaveHandle:
     def done(self) -> bool:
         return self._done.is_set()
 
+    def snapshot_done(self) -> bool:
+        """True once the save's device→host snapshot has landed (the
+        write may still be in flight). Backends without snapshot
+        signalling flip this together with :meth:`done`."""
+        return self._snapshotted.is_set()
+
+    def wait_snapshot(self, timeout: Optional[float] = None):
+        """Block until the snapshot (device→staging copy) of this save
+        has landed — the earliest point a training step that updates the
+        state in place may safely run (DESIGN.md §10). The write keeps
+        overlapping that step; ``wait()`` remains the local durability
+        point.
+
+        Raises:
+            TimeoutError: snapshot still in flight after ``timeout``.
+            BaseException: the save's failure, when it already failed.
+        """
+        if not self._snapshotted.wait(timeout):
+            raise TimeoutError(
+                f"snapshot of step {self.step} still in flight")
+        if self._done.is_set() and self._exc is not None:
+            raise self._exc
+
     def wait(self, timeout: Optional[float] = None) -> SaveStats:
-        """Block until the LOCAL commit completed; returns the save's
-        unified :class:`SaveStats` or re-raises its failure."""
+        """Block until the LOCAL commit completed.
+
+        Args:
+            timeout: seconds to wait (None = forever).
+
+        Returns:
+            the save's unified :class:`SaveStats`.
+
+        Raises:
+            TimeoutError: still in flight after ``timeout``.
+            BaseException: the save's own failure, re-raised.
+        """
         if not self._done.wait(timeout):
             raise TimeoutError(f"save of step {self.step} still in flight")
         if self._exc is not None:
@@ -109,6 +182,94 @@ class SaveHandle:
         return self._stats
 
     result = wait
+
+    def _attach_upload(self, ticket):
+        # called by the engine AFTER the local commit and BEFORE this
+        # handle is finished, so wait() → wait_uploaded() never races
+        self._upload = ticket
+
+    def uploaded(self) -> bool:
+        """True once the remote COMMIT landed (or there is no upload
+        tier and the local save is done). A FAILED upload is not
+        "uploaded" — its step has no observable remote generation."""
+        if not self.done():
+            return False
+        if self._upload is None:
+            return True
+        return self._upload.done() and self._upload._exc is None
+
+    def wait_uploaded(self, timeout: Optional[float] = None):
+        """Block until this save is durable on the REMOTE tier.
+
+        Args:
+            timeout: seconds to wait (None = forever); ONE budget
+                covering the local wait and the upload together.
+
+        Returns:
+            the save's :class:`repro_torch.core.upload.UploadStats`, or None
+            when the backend has no upload tier.
+
+        Raises:
+            TimeoutError: local save or upload still in flight.
+            BaseException: the save's or the upload's failure.
+        """
+        t0 = time.perf_counter()
+        self.wait(timeout)
+        if self._upload is None:
+            return None
+        remaining = (None if timeout is None else
+                     max(timeout - (time.perf_counter() - t0), 0.0))
+        return self._upload.wait(remaining)
+
+    def _attach_replication(self, ticket):
+        # like _attach_upload: attached AFTER the local commit, BEFORE
+        # the handle finishes — wait() → wait_replicated() never races
+        self._replication = ticket
+
+    def replicated(self) -> bool:
+        """True once the peer tier holds this save (the replication job
+        committed its chain to at least one peer), or there is no peer
+        tier and the local save is done. A FAILED replication — zero
+        peers committed — is never "replicated"."""
+        if not self.done():
+            return False
+        if self._replication is None:
+            return True
+        if not self._replication.done() or \
+                self._replication._exc is not None:
+            return False
+        stats = self._replication._stats
+        return bool(stats is not None and stats.committed)
+
+    def wait_replicated(self, timeout: Optional[float] = None):
+        """Block until this save is durable on the PEER tier (DESIGN.md
+        §11) — the first OFF-NODE durability point, expected orders of
+        magnitude before :meth:`wait_uploaded`'s object-store commit.
+
+        Args:
+            timeout: seconds to wait (None = forever); ONE budget
+                covering the local wait and ALL K peer transfers
+                together — never K stacked timeouts.
+
+        Returns:
+            the save's :class:`repro_torch.core.peer.ReplicationStats`
+            (``under_replicated`` flags a degraded K' < K landing), or
+            None when no peer tier is configured.
+
+        Raises:
+            TimeoutError: local save or replication still in flight.
+            BaseException: the save's failure, or the replication's —
+                a replication that committed to NO peer raises
+                :class:`repro_torch.core.peer.ReplicationError` here and
+                never reports durable.
+        """
+        t0 = time.perf_counter()
+        self.wait(timeout)
+        if self._replication is None:
+            return None
+        remaining = (None if timeout is None else
+                     max(timeout - (time.perf_counter() - t0), 0.0))
+        return self._replication.wait(remaining)
 
     def exception(self, timeout: Optional[float] = None
                   ) -> Optional[BaseException]:
@@ -142,8 +303,8 @@ class CheckpointBackend:
                               volume_dirs: List[str]) -> SaveStats:
         """Multi-volume write hook: ``directory`` is the primary staging
         dir (manifest + COMMIT home), ``volume_dirs[v]`` the staging dir
-        for volume ``v`` (may alias ``directory``). Volume-agnostic
-        backends inherit this default."""
+        for volume ``v`` (may alias ``directory``). Backends that are
+        volume-agnostic inherit this default and keep working."""
         return self.write_payload(state, step, extras, directory)
 
     def read_payload(self, directory: str, step: int, like=None,
@@ -155,7 +316,8 @@ class CheckpointBackend:
                              volume_roots=None,
                              parallel=None) -> Tuple[object, object]:
         """Multi-volume read hook; the default ignores the shard context
-        and the parallel-restore request."""
+        and the parallel-restore request (single-dir backends never need
+        either)."""
         return self.read_payload(directory, step, like=like, verify=verify)
 
     def invalidate_arena(self):
@@ -164,14 +326,19 @@ class CheckpointBackend:
 
     def bind_snapshot(self, callback):
         """Install the one-shot snapshot-complete callback for the NEXT
-        save (DESIGN.md §10). Backends without a distinct snapshot stage
-        ignore it — the engine then treats snapshot-done as save-done."""
+        save (DESIGN.md §10): fire it once the device→staging copy has
+        fully landed, while the write may still be in flight. Backends
+        without a distinct snapshot stage ignore it — the engine then
+        treats snapshot-done as save-done."""
 
     def after_commit(self, step: int, directory: str, marker: dict,
                      stats: SaveStats):
         """Post-publish hook, called by the engine AFTER the local
         crash-atomic rename with the published ``directory`` and its
-        COMMIT ``marker``."""
+        COMMIT ``marker``. Tiered backends enqueue the background
+        upload here and return the ``UploadTicket`` (attached to the
+        SaveHandle); the default returns None — no second tier."""
+        return None
 
     def close(self):
         pass
@@ -205,6 +372,13 @@ class FastPersistBackend(CheckpointBackend):
                                 volume_roots=volume_roots,
                                 read_plan=parallel)
 
+    def read_owned(self, directory, step, rank, n_readers, ownership=None,
+                   verify=True, marker=None, volume_roots=None):
+        return self._inner.read_owned(step, rank, n_readers,
+                                      ownership=ownership, verify=verify,
+                                      directory=directory, marker=marker,
+                                      volume_roots=volume_roots)
+
     def load_tensor(self, directory, step, name, marker=None,
                     volume_roots=None):
         return self._inner.load_tensor(step, name, directory=directory,
@@ -223,8 +397,11 @@ class FastPersistBackend(CheckpointBackend):
 
     def after_commit(self, step, directory, marker, stats):
         # delta chain bookkeeping (DESIGN.md §9): a save may only serve
-        # as a delta base once its COMMIT actually published
+        # as a delta base once its COMMIT actually published — telling
+        # the checkpointer here closes the crash window where a delta
+        # would reference a base that never became visible
         self._inner.note_committed(step, marker)
+        return None
 
 
 class PipelinedFastPersistBackend(FastPersistBackend):
@@ -233,11 +410,43 @@ class PipelinedFastPersistBackend(FastPersistBackend):
     async_save = True
 
 
-def _tiered_backend(spec: CheckpointSpec) -> CheckpointBackend:
-    """``fastpersist-tiered[-pipelined]``: registered under the
-    reference's keys so their COMMIT markers resolve (reads go through
-    the fastpersist alias), but writing through them is not ported."""
-    raise NotImplementedError(_TIERS_TODO)
+class TieredFastPersistBackend(FastPersistBackend):
+    """Tiered durability (DESIGN.md §8): the fastpersist local write
+    path, plus an :class:`repro_torch.core.upload.UploadManager` background
+    worker that streams each committed generation to the spec's
+    ``upload_store`` AFTER the local COMMIT rename — local NVMe for
+    speed, the object tier for durability, hot path untouched."""
+
+    def __init__(self, spec: CheckpointSpec):
+        super().__init__(spec)
+        if spec.upload_store is None:
+            raise ValueError(
+                f"backend {spec.backend!r} needs CheckpointSpec."
+                f"upload_store (a path, file:// / registered scheme:// "
+                f"URL, or an ObjectStore instance)")
+        from repro_torch.core.upload import UploadManager
+        roots = [os.path.abspath(v)
+                 for v in (spec.volumes or [spec.directory])]
+        self.uploader = UploadManager(spec.upload_store,
+                                      volume_roots=roots,
+                                      max_retries=spec.upload_max_retries)
+
+    def after_commit(self, step, directory, marker, stats):
+        super().after_commit(step, directory, marker, stats)
+        return self.uploader.enqueue(step, directory, marker)
+
+    def close(self):
+        try:
+            self.uploader.close(drain=True)
+        finally:
+            super().close()
+
+
+class TieredPipelinedFastPersistBackend(TieredFastPersistBackend):
+    """Tiered durability on top of the §4.3 pipelined local write: the
+    engine's helper thread persists+commits locally off the critical
+    path, then hands the sealed generation to the upload worker."""
+    async_save = True
 
 
 class BaselineBackend(CheckpointBackend):
@@ -274,13 +483,26 @@ _REGISTRY: Dict[str, Callable[[CheckpointSpec], CheckpointBackend]] = {}
 def register_backend(name: str,
                      factory: Callable[[CheckpointSpec], CheckpointBackend],
                      overwrite: bool = False):
-    """Register a checkpoint backend under a string key (what
-    ``CheckpointSpec.backend``, the launcher's ``--backend`` and COMMIT
-    markers refer to)."""
+    """Register a checkpoint backend under a string key. Third-party
+    strategies plug in here and immediately work with Trainer,
+    RetentionManager, benchmarks, and the CLI.
+
+    Args:
+        name: registry key; what ``CheckpointSpec.backend``, the
+            launcher's ``--backend``, and COMMIT markers refer to.
+        factory: called with the engine's :class:`CheckpointSpec`,
+            returns a :class:`CheckpointBackend`.
+        overwrite: replace an existing registration instead of raising
+            ``ValueError``.
+    """
     if name in _REGISTRY and not overwrite:
         raise ValueError(f"backend {name!r} already registered "
                          f"(pass overwrite=True to replace)")
     _REGISTRY[name] = factory
+
+
+def unregister_backend(name: str):
+    _REGISTRY.pop(name, None)
 
 
 def available_backends() -> Tuple[str, ...]:
@@ -299,8 +521,9 @@ def get_backend_factory(name: str
 register_backend("baseline", BaselineBackend)
 register_backend("fastpersist", FastPersistBackend)
 register_backend("fastpersist-pipelined", PipelinedFastPersistBackend)
-register_backend("fastpersist-tiered", _tiered_backend)
-register_backend("fastpersist-tiered-pipelined", _tiered_backend)
+register_backend("fastpersist-tiered", TieredFastPersistBackend)
+register_backend("fastpersist-tiered-pipelined",
+                 TieredPipelinedFastPersistBackend)
 
 
 # ================================================================== worker
@@ -346,6 +569,9 @@ class EngineStats:
     write_seconds: float = 0.0        # sum of per-save persist wall time
     bytes_written: int = 0
     arena_reuses: int = 0             # saves that refilled a cached arena
+    #                                   in place (zero-alloc steady state)
+    uploads_enqueued: int = 0         # commits handed to the upload tier
+    replications_enqueued: int = 0    # commits handed to the peer tier
 
 
 class CheckpointEngine:
@@ -353,9 +579,6 @@ class CheckpointEngine:
     path, one on-disk layout — regardless of backend."""
 
     def __init__(self, spec: CheckpointSpec):
-        if spec.upload_store is not None or spec.peers \
-                or spec.serve_cache_mb > 0:
-            raise NotImplementedError(_TIERS_TODO)
         self.spec = spec
         os.makedirs(spec.directory, exist_ok=True)
         for root in self.volume_roots():
@@ -363,7 +586,8 @@ class CheckpointEngine:
                 os.makedirs(root, exist_ok=True)
             except OSError as e:
                 # a dead volume must not kill the engine: the per-save
-                # health probe stripes around it
+                # health probe (partition.probe_volumes) will stripe
+                # around it and record it as degraded
                 import warnings
                 warnings.warn(f"checkpoint volume root {root} is "
                               f"unavailable ({e}); saves will stripe "
@@ -373,6 +597,26 @@ class CheckpointEngine:
         self._backend = get_backend_factory(spec.backend)(spec)
         self._read_backends: Dict[str, CheckpointBackend] = {
             spec.backend: self._backend}
+        self._remote_store = None       # lazy, for non-tiered backends
+        self._serve_cache = None        # lazy, DESIGN.md §12 read cache
+        #: :class:`repro_torch.core.upload.HydrateStats` of the most recent
+        #: hydrate_remote/hydrate_peer call (None before the first)
+        self.last_hydrate_stats = None
+        #: :class:`repro_torch.core.serve.TensorReadStats` of remote/peer
+        #: ``load_tensor`` calls, append-only
+        self.last_serve: List[object] = []
+        # peer-replication tier (DESIGN.md §11): backend-agnostic — the
+        # ENGINE owns the replicator and enqueues at the same
+        # after-local-commit point the tiered backends upload from
+        self._replicator = None
+        if spec.peers:
+            from repro_torch.core.peer import PeerReplicator
+            self._replicator = PeerReplicator(
+                spec.peers,
+                replication_factor=spec.replication_factor,
+                failure_domain=spec.failure_domain,
+                volume_roots=self.volume_roots(),
+                op_timeout=spec.peer_op_timeout)
         self._worker: Optional[_SaveWorker] = None   # started lazily
         self._inflight: List[SaveHandle] = []
         self._deferred_exc: Optional[BaseException] = None
@@ -423,7 +667,8 @@ class CheckpointEngine:
     def _warn_if_legacy_only(self):
         """Pre-engine checkpoints (manifest.json, no COMMIT) are
         indistinguishable from torn directories, so the engine will not
-        read them (DESIGN.md §4) — say so loudly once."""
+        read them (DESIGN.md §4) — but silently restarting from step 0
+        would be worse, so say it loudly once."""
         if layout.committed_steps(self.spec.directory, legacy_ok=False):
             return
         legacy = layout.committed_steps(self.spec.directory, legacy_ok=True)
@@ -432,8 +677,9 @@ class CheckpointEngine:
             warnings.warn(
                 f"{self.spec.directory} contains only legacy (pre-engine, "
                 f"COMMIT-less) checkpoints {legacy}; CheckpointEngine "
-                f"cannot verify them and will ignore them (DESIGN.md §4).",
-                stacklevel=3)
+                f"cannot verify them and will ignore them. Load them with "
+                f"the legacy checkpointer classes and re-save through the "
+                f"engine (DESIGN.md §4).", stacklevel=3)
 
     def _prune_inflight_locked(self) -> List[SaveHandle]:
         """Drop completed handles, capturing any failure so wait() still
@@ -464,9 +710,9 @@ class CheckpointEngine:
         """The crash-atomic sharded save: stage on every volume → publish
         secondary shard dirs (fresh generation names, invisible until
         referenced) → seal (global COMMIT) → publish the primary
-        (rename; THE commit point). A death at any point leaves only
-        ignorable ``.tmp`` debris and unreferenced shard dirs that
-        startup sweeps."""
+        (rename; THE commit point). Runs on the caller or the helper
+        thread; a death at any point leaves only ignorable ``.tmp``
+        debris and unreferenced shard dirs that startup sweeps."""
         root = self.spec.directory
         roots = self.volume_roots()
         primary_real = os.path.realpath(root)
@@ -474,9 +720,13 @@ class CheckpointEngine:
         staging = os.path.join(root, layout.staging_dir_name(step))
         final = os.path.join(root, layout.step_dir_name(step))
         # per-volume staging: volumes aliasing the primary stage into the
-        # primary staging dir; others get a generation-named shard dir;
-        # a dead root gets no staging dir (the plan-time probe stripes
-        # around it and the manifest records it as degraded)
+        # primary staging dir; others get a generation-named shard dir —
+        # aliased/duplicate secondary roots share ONE generation dir, so
+        # a symlinked mount never double-publishes the same name
+        # volume health: a root that is gone/unwritable gets no staging
+        # dir — the checkpointer's plan-time probe then stripes around
+        # it (its staging path cannot be created) and the manifest
+        # records the degraded set
         _, dead = probe_volumes(roots)
         dead = set(dead)
         volume_staging, secondary = [], {}    # v → (staging, final)
@@ -487,6 +737,8 @@ class CheckpointEngine:
                 volume_staging.append(staging)
                 continue
             if v in dead:
+                # hand the uncreatable path down: the probe below reads
+                # it as degraded; never publish/sweep on a dead root
                 volume_staging.append(os.path.join(
                     vr, layout.shard_staging_dir_name(step, nonce)))
                 continue
@@ -503,9 +755,10 @@ class CheckpointEngine:
             if os.path.exists(d):
                 shutil.rmtree(d)
             os.makedirs(d)
-        # snapshot-granular sync (DESIGN.md §10): binding happens here
-        # (on the serial save path) so queued saves never clobber each
-        # other's callback
+        # snapshot-granular sync (DESIGN.md §10): tell the backend to
+        # flip this handle's snapshot event as soon as the device→
+        # staging copy lands — binding happens here (on the serial save
+        # path) so queued saves never clobber each other's callback
         if handle is not None:
             self._backend.bind_snapshot(handle._mark_snapshot)
         published = False
@@ -514,7 +767,8 @@ class CheckpointEngine:
                 state, step, extras, staging, volume_staging)
             t0 = time.perf_counter()
             # a volume-agnostic backend (baseline, single_file) leaves
-            # its secondary staging dirs empty: drop them
+            # its secondary staging dirs empty: drop them instead of
+            # publishing and commit-recording empty generation dirs
             live = []
             for s, f in gen_by_root.values():
                 if os.listdir(s):
@@ -522,9 +776,13 @@ class CheckpointEngine:
                 else:
                     os.rmdir(s)
             if self.spec.fsync_commit:
-                # the bytes COMMIT vouches for must be durable first
+                # the bytes COMMIT vouches for must be durable first —
+                # otherwise power loss can keep the marker, drop the
+                # data; volumes drain concurrently, one flusher per file
                 layout.fsync_payloads([staging, *(s for s, _ in live)])
             if len(live) > 1:
+                # publish every volume's shard dir concurrently — each
+                # rename + parent fsync is an independent journal commit
                 from concurrent.futures import ThreadPoolExecutor
                 with ThreadPoolExecutor(len(live)) as ex:
                     list(ex.map(
@@ -548,6 +806,9 @@ class CheckpointEngine:
             published = True
             stats.commit_seconds = time.perf_counter() - t0
         except BaseException:
+            # graceful-failure path; a SIGKILL leaves the .tmp dirs and
+            # unreferenced generation dirs, which every reader ignores
+            # and the next engine start sweeps
             shutil.rmtree(staging, ignore_errors=True)
             for s, f in gen_by_root.values():
                 shutil.rmtree(s, ignore_errors=True)
@@ -555,7 +816,9 @@ class CheckpointEngine:
                     shutil.rmtree(f, ignore_errors=True)
             self.stats.failed += 1
             raise
-        # the new COMMIT supersedes any previous generation of this step
+        # the new COMMIT supersedes any previous generation of this step:
+        # older shard dirs are now unreferenced — drop them (best-effort;
+        # a crash here leaves orphans for the startup sweep)
         for _, f in gen_by_root.values():
             for old in layout.shard_dirs_for_step(os.path.dirname(f), step):
                 if os.path.basename(old) != os.path.basename(f):
@@ -567,7 +830,22 @@ class CheckpointEngine:
         self.stats.bytes_written += stats.total_bytes
         if getattr(stats, "arena_reused", False):
             self.stats.arena_reuses += 1
-        self._backend.after_commit(step, final, marker, stats)
+        # second durability tier (DESIGN.md §8): the local commit point
+        # is behind us — hand the sealed generation to the backend's
+        # background uploader; the ticket lands on the handle BEFORE it
+        # finishes, so wait() → wait_uploaded() never races
+        ticket = self._backend.after_commit(step, final, marker, stats)
+        if ticket is not None:
+            self.stats.uploads_enqueued += 1
+            if handle is not None:
+                handle._attach_upload(ticket)
+        # peer tier (DESIGN.md §11): same hook point, same pre-finish
+        # attach discipline — wait() → wait_replicated() never races
+        if self._replicator is not None:
+            rticket = self._replicator.enqueue(step, final, marker)
+            self.stats.replications_enqueued += 1
+            if handle is not None:
+                handle._attach_replication(rticket)
         return stats
 
     # ---------------------------------------------------------------- sync
@@ -591,7 +869,9 @@ class CheckpointEngine:
         """Block until every in-flight save's device→host snapshot has
         landed (DESIGN.md §10) — the chunk-granular half of the paper's
         §4.3 sync point. After this, a train step may update the state
-        in place while the WRITES still overlap it. Re-raises the first
+        in place while the WRITES still overlap it; full commits are
+        still awaited by the save throttle, :meth:`wait` and
+        :meth:`drain`. Re-raises the first
         failure of an already-failed save. No-op for sync backends."""
         t0 = time.perf_counter()
         with self._lock:
@@ -612,7 +892,8 @@ class CheckpointEngine:
 
     def drain(self):
         """wait() plus parking the helper thread — no thread outlives
-        the work. The next async save restarts the worker."""
+        the work. The engine stays fully usable; the next async save
+        restarts the worker."""
         try:
             self.wait()
         finally:
@@ -622,11 +903,22 @@ class CheckpointEngine:
 
     def close(self):
         """Drain outstanding saves, stop the helper thread, and close
-        the backend."""
+        the backend (which drains its upload tier) and the peer
+        replicator."""
         try:
             self.drain()
         finally:
-            self._backend.close()
+            try:
+                self._backend.close()
+            finally:
+                if self._replicator is not None:
+                    self._replicator.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
     # ---------------------------------------------------------------- read
     def steps(self) -> List[int]:
@@ -635,7 +927,9 @@ class CheckpointEngine:
 
     def latest_step(self) -> Optional[int]:
         """Most recent step that passes DEEP commit verification —
-        uncommitted, torn, and stray directories are skipped."""
+        uncommitted, torn, and stray directories are skipped, so a
+        restore after a mid-save crash resumes from the last good
+        checkpoint instead of exploding."""
         for step in reversed(self.steps()):
             try:
                 layout.verify_commit(
@@ -650,28 +944,59 @@ class CheckpointEngine:
     def load(self, step: Optional[int] = None, like=None,
              verify: Optional[bool] = None, device=None,
              parallel=None, owned_only: bool = False,
-             tier: str = "local"):
+             reader_rank: int = 0, n_readers: Optional[int] = None,
+             ownership=None, tier: str = "local"):
         """Load a committed checkpoint (latest when ``step`` is None).
         Raises :class:`layout.TornCheckpointError` on an uncommitted or
-        torn step. The COMMIT marker records which backend wrote the
-        payload AND where every shard lives, so an engine reads
-        checkpoints written by another backend, writer count, volume
-        layout — or package (rank-elastic restore).
+        torn step — a half-written checkpoint is never silently loaded.
+        The COMMIT marker records which backend wrote the payload AND
+        where every shard lives, so an engine can read checkpoints
+        written by a different backend, writer count, or volume layout
+        (rank-elastic restore).
+
+        ``tier="remote"`` restores THROUGH the object tier (DESIGN.md
+        §8): the step (latest committed remote generation when None) is
+        first hydrated into the local directory —
+        missing/corrupted local shards are downloaded and CRC-verified
+        against the remote COMMIT manifest, intact local ones reused —
+        and then loaded through the normal (optionally parallel) local
+        path. Requires ``spec.upload_store`` or a tiered backend.
+
+        ``tier="peer"`` restores from the peer-replication tier
+        (DESIGN.md §11): the newest fully-replicated chain is hydrated
+        from the healthiest peer holding it, falling back to the
+        remote tier when no peer can serve. Requires ``spec.peers``.
 
         ``like`` is the state pytree to rebuild (its leaves may be
         ``meta`` tensors); without it a flat ``{name: tensor}`` dict is
         returned. ``device`` moves every restored tensor there
         (``.to(device)``, the reference's ``sharding`` hook); without it
-        the tensors are CPU views into the read staging (arena lifetime
-        rule, DESIGN.md §7: copy to retain past the next load).
+        the tensors are CPU views into the read staging.
 
         ``parallel`` switches to the parallel restore pipeline (paper
-        §4.2): an int (or ``"auto"``) drives that many local reader
-        workers. Only the local tier is ported."""
-        if tier != "local":
-            raise NotImplementedError(_TIERS_TODO)
+        §4.2 load-then-allgather, single-host form): an int (or
+        ``"auto"``) drives that many local reader workers, each reading
+        only its owned spans through the async read backends into one
+        shared arena buffer. NOTE the arena lifetime rule (DESIGN.md
+        §7): arrays from a parallel load are views into the engine's
+        read arena, valid until the next load — copy (``.clone()``)
+        to retain. Backends without span support ignore ``parallel``.
+
+        ``owned_only=True`` returns this rank's
+        :class:`~repro_torch.core.checkpointer.OwnedRead` instead of the full
+        state — the per-rank half of a genuinely distributed restore
+        (``reader_rank`` / ``n_readers`` / ``ownership`` as in
+        ``load_owned``)."""
+        if tier not in ("local", "peer", "remote"):
+            raise ValueError(f"tier must be 'local', 'peer' or "
+                             f"'remote', got {tier!r}")
+        if tier == "remote":
+            step = self.hydrate_remote(step)
+        elif tier == "peer":
+            step = self.hydrate_peer(step)
         if owned_only:
-            raise NotImplementedError(_OWNED_TODO)
+            return self.load_owned(reader_rank, n_readers, step=step,
+                                   ownership=ownership, verify=verify)
         verify = self.spec.verify_on_load if verify is None else verify
         preverified = False
         if step is None:
@@ -688,6 +1013,9 @@ class CheckpointEngine:
             marker = layout.verify_commit(d, deep=verify,
                                           volume_roots=self.volume_roots())
         reader = self._reader_for(marker.get("backend", self.spec.backend))
+        # only pass the parallel kwarg when actually requested: out-of-
+        # tree backends registered against the pre-restore-pipeline
+        # signature must keep working for plain loads
         kw = {} if parallel is None else {"parallel": parallel}
         state, manifest = reader.read_payload_sharded(
             d, step, like=like, verify=verify, marker=marker,
@@ -696,9 +1024,38 @@ class CheckpointEngine:
             state = _to_device(state, device)
         return state, manifest
 
-    def load_owned(self, *args, **kwargs):
-        """The reference's per-rank owned-span restore: not ported."""
-        raise NotImplementedError(_OWNED_TODO)
+    def load_owned(self, reader_rank: int, n_readers: Optional[int] = None,
+                   step: Optional[int] = None, ownership=None,
+                   verify: Optional[bool] = None):
+        """One DP rank's half of the distributed parallel restore: read
+        ONLY the spans ``reader_rank`` owns (``ownership=None`` →
+        balanced byte stripe; ``"zero1"`` → the ZeRO-1 projection from
+        ``repro_torch.sharding.specs.zero1_ownership``; a dict → explicit).
+        ``n_readers`` defaults to the configured DP degree. Returns an
+        :class:`~repro_torch.core.checkpointer.OwnedRead`; on a real DP group
+        each rank runs this, then one allgather
+        (``checkpointer.allgather_owned`` is the single-host stand-in)
+        rebuilds the stream."""
+        verify = self.spec.verify_on_load if verify is None else verify
+        if n_readers is None:
+            n_readers = max(1, self.spec.fp.topology.dp_degree)
+        if step is None:
+            step = self.latest_step()
+            if step is None:
+                raise FileNotFoundError(
+                    f"no committed checkpoint under {self.spec.directory}")
+        d = os.path.join(self.spec.directory, layout.step_dir_name(step))
+        marker = layout.verify_commit(d, deep=verify,
+                                      volume_roots=self.volume_roots())
+        reader = self._reader_for(marker.get("backend", self.spec.backend))
+        if not hasattr(reader, "read_owned"):
+            raise NotImplementedError(
+                f"backend {marker.get('backend')!r} has no owned-span "
+                f"read support")
+        return reader.read_owned(d, step, reader_rank, n_readers,
+                                 ownership=ownership, verify=verify,
+                                 marker=marker,
+                                 volume_roots=self.volume_roots())
 
     def invalidate_arena(self):
         """Drop the serialize arena's cached layout when the state object
@@ -710,13 +1067,62 @@ class CheckpointEngine:
                 b.invalidate_arena()
 
     def load_tensor(self, name: str, step: Optional[int] = None,
-                    tier: str = "local"):
+                    tier: str = "local", device=None):
         """Partial restore of one tensor by manifest name, reading only
         the byte spans the global index maps it to — across however many
-        shards/volumes the writer striped it onto. Only the local tier is
-        ported."""
-        if tier != "local":
-            raise NotImplementedError(_TIERS_TODO)
+        shards/volumes the writer striped it onto.
+
+        ``tier="remote"`` / ``tier="peer"`` (DESIGN.md §12) serve the
+        tensor STRAIGHT from the object/peer tier — no local
+        checkpoint, no hydration: the spans are range-fetched (through
+        the serving read cache when ``spec.serve_cache_mb > 0``) and
+        decoded, so an inference worker pulls one embedding slice or
+        expert for a fraction of the checkpoint's bytes. Wire
+        accounting lands in ``engine.last_serve``. The peer tier scans
+        peers healthiest-first and falls back to the remote store.
+
+        ``device`` moves the tensor there (``.to(device)``); without it
+        the tensor stays on the CPU."""
+        if tier not in ("local", "peer", "remote"):
+            raise ValueError(f"tier must be 'local', 'peer' or "
+                             f"'remote', got {tier!r}")
+        if tier == "remote":
+            store = self.remote_store
+            if store is None:
+                raise ValueError(
+                    "load_tensor(tier='remote') needs an object store: "
+                    "set CheckpointSpec.upload_store or use a "
+                    "fastpersist-tiered backend")
+            from repro_torch.core.serve import load_tensor_remote
+            return load_tensor_remote(store, name, step=step,
+                                      cache=self.serve_cache,
+                                      stats_out=self.last_serve,
+                                      device=device)
+        if tier == "peer":
+            rep = self._replicator
+            if rep is None:
+                raise ValueError(
+                    "load_tensor(tier='peer') needs a peer tier: set "
+                    "CheckpointSpec.peers")
+            from repro_torch.core.serve import load_tensor_remote
+            miss = None
+            for _pname, pstore in rep.ordered_restore_peers():
+                try:
+                    return load_tensor_remote(pstore, name, step=step,
+                                              cache=self.serve_cache,
+                                              stats_out=self.last_serve,
+                                              device=device)
+                except FileNotFoundError as e:
+                    miss = e                 # peer has no such step
+                except OSError as e:
+                    miss = e                 # unreachable peer: next
+            if self.remote_store is not None:
+                return self.load_tensor(name, step=step, tier="remote",
+                                        device=device)
+            raise FileNotFoundError(
+                f"no peer can serve tensor {name!r}"
+                f"{f' of step {step}' if step is not None else ''}"
+                f" ({miss})")
         if step is None:
             step = self.latest_step()
             if step is None:
@@ -729,12 +1135,159 @@ class CheckpointEngine:
             raise NotImplementedError(
                 f"backend {marker.get('backend')!r} has no partial-read "
                 f"support")
-        return reader.load_tensor(d, step, name, marker=marker,
-                                  volume_roots=self.volume_roots())
+        out = reader.load_tensor(d, step, name, marker=marker,
+                                 volume_roots=self.volume_roots())
+        return out if device is None else out.to(device)
+
+    # ---------------------------------------------------------- tiered
+    @property
+    def upload_manager(self):
+        """The tiered backend's :class:`repro_torch.core.upload.UploadManager`
+        (None for backends without an upload tier)."""
+        return getattr(self._backend, "uploader", None)
+
+    @property
+    def remote_store(self):
+        """The resolved :class:`repro_torch.core.upload.ObjectStore` of the
+        second tier — the tiered backend's own store, or one built from
+        ``spec.upload_store`` for non-tiered backends (so any engine
+        can *read* the remote tier); None when no store is configured."""
+        mgr = self.upload_manager
+        if mgr is not None:
+            return mgr.store
+        if self.spec.upload_store is None:
+            return None
+        if self._remote_store is None:
+            from repro_torch.core.upload import make_store
+            self._remote_store = make_store(self.spec.upload_store)
+        return self._remote_store
+
+    @property
+    def serve_cache(self):
+        """The engine's :class:`repro_torch.core.serve.ReadCache` (DESIGN.md
+        §12) at ``<directory>/.serve-cache``, built lazily from
+        ``spec.serve_cache_mb``; None when the cache is disabled (the
+        default). Digest-keyed, so its blocks are valid across steps,
+        generations, peers, and engine restarts."""
+        if self.spec.serve_cache_mb <= 0:
+            return None
+        if self._serve_cache is None:
+            from repro_torch.core.serve import ReadCache
+            self._serve_cache = ReadCache(
+                os.path.join(self.spec.directory, ".serve-cache"),
+                max_bytes=int(self.spec.serve_cache_mb) << 20)
+        return self._serve_cache
+
+    def wait_uploaded(self):
+        """Block until every enqueued upload reached its remote COMMIT
+        (the remote-tier analogue of :meth:`wait`); re-raises the first
+        upload failure. Returns the drained uploads'
+        :class:`repro_torch.core.upload.UploadStats` (empty for non-tiered
+        backends)."""
+        mgr = self.upload_manager
+        return mgr.drain() if mgr is not None else []
+
+    def remote_steps(self) -> List[int]:
+        """Steps with a committed generation in the object tier."""
+        store = self.remote_store
+        if store is None:
+            return []
+        from repro_torch.core import upload
+        return upload.remote_steps(store)
+
+    def latest_remote_step(self) -> Optional[int]:
+        steps = self.remote_steps()
+        return steps[-1] if steps else None
+
+    def hydrate_remote(self, step: Optional[int] = None,
+                       readers: Optional[int] = None) -> int:
+        """Materialise a remote generation locally (download + CRC
+        verification + crash-atomic local re-commit; intact local shard
+        files are reused). The missing bytes are range-fetched
+        ``spec.hydrate_readers`` wide (override with ``readers``)
+        through the serving read cache when enabled; byte accounting
+        lands in ``engine.last_hydrate_stats``. Returns the hydrated
+        step. ``load(tier="remote")`` calls this before the normal
+        local load."""
+        store = self.remote_store
+        if store is None:
+            raise ValueError(
+                "load(tier='remote') needs an object store: set "
+                "CheckpointSpec.upload_store or use a fastpersist-tiered "
+                "backend")
+        from repro_torch.core.upload import HydrateStats, hydrate
+        self.last_hydrate_stats = HydrateStats()
+        return hydrate(store, self.spec.directory, step=step,
+                       io_config=self.spec.fp.writer,
+                       verify=self.spec.verify_on_load,
+                       readers=(self.spec.hydrate_readers
+                                if readers is None else readers),
+                       cache=self.serve_cache,
+                       stats=self.last_hydrate_stats)
+
+    # ------------------------------------------------------------ peer tier
+    @property
+    def peer_replicator(self):
+        """The engine's :class:`repro_torch.core.peer.PeerReplicator` (None
+        when ``spec.peers`` is unset)."""
+        return self._replicator
+
+    def wait_replicated(self):
+        """Block until every enqueued replication finished on the peer
+        tier (the peer analogue of :meth:`wait_uploaded`); re-raises
+        the first replication failure. Returns the drained jobs'
+        :class:`repro_torch.core.peer.ReplicationStats` (empty without a
+        peer tier)."""
+        rep = self._replicator
+        return rep.drain() if rep is not None else []
+
+    def unreplicated_steps(self) -> List[int]:
+        """Steps not yet durable at the full replication target —
+        the peer tier's retention pin set (empty without one)."""
+        rep = self._replicator
+        return rep.unreplicated_steps() if rep is not None else []
+
+    def peer_status(self) -> List[dict]:
+        """Per-peer health snapshot (empty without a peer tier)."""
+        rep = self._replicator
+        return rep.peer_status() if rep is not None else []
+
+    def hydrate_peer(self, step: Optional[int] = None,
+                     readers: Optional[int] = None) -> int:
+        """Restore-from-peer failover (DESIGN.md §11): rebuild the
+        local checkpoint from the newest FULLY-replicated chain on the
+        healthiest peer (CRC-verified, crash-atomic local re-commit),
+        falling back to the remote tier when no peer holds a complete
+        chain, and raising only when neither tier can serve. Returns
+        the hydrated step. ``load(tier="peer")`` calls this first."""
+        rep = self._replicator
+        if rep is None:
+            raise ValueError(
+                "load(tier='peer') needs a peer tier: set "
+                "CheckpointSpec.peers")
+        from repro_torch.core.upload import HydrateStats
+        self.last_hydrate_stats = HydrateStats()
+        try:
+            return rep.hydrate(self.spec.directory, step=step,
+                               io_config=self.spec.fp.writer,
+                               verify=self.spec.verify_on_load,
+                               readers=(self.spec.hydrate_readers
+                                        if readers is None else readers),
+                               cache=self.serve_cache,
+                               stats=self.last_hydrate_stats)
+        except FileNotFoundError as peer_miss:
+            if self.remote_store is None:
+                raise
+            import warnings
+            warnings.warn(
+                f"peer tier cannot serve the restore ({peer_miss}); "
+                f"falling back to the remote tier", stacklevel=2)
+            return self.hydrate_remote(step, readers=readers)
 
     #: read-path aliases: these backends share the fastpersist on-disk
     #: format, so loading THEIR checkpoints never needs their write-side
-    #: machinery
+    #: machinery (a tiered reader would demand an upload store; the
+    #: pipelined one would spin a pointless helper thread)
     _READ_ALIASES = {
         "fastpersist-pipelined": "fastpersist",
         "fastpersist-tiered": "fastpersist",

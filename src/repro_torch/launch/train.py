@@ -6,11 +6,10 @@
         --keyframe-every 2 --device-dirty            # --device cuda
 
 Runs on the CUDA card unless ``--device cpu`` is given; asking for cuda
-without a card raises. ``--upload-store``, ``--peers``,
-``--serve-cache-mb`` and ``--restore-tier`` other than local raise
-NotImplementedError (ROADMAP.md queue A item 5); the flags that only
-tune those tiers (replication factor, failure domain, hydration
-readers) come with them.
+without a card raises. The durability tiers take the reference's flags
+and defaults: ``--upload-store``, ``--peers``, ``--replication-factor``,
+``--failure-domain``, ``--hydrate-readers``, ``--serve-cache-mb`` and
+``--restore-tier``.
 """
 from __future__ import annotations
 
@@ -84,23 +83,50 @@ def main(argv=None):
                     default=True,
                     help="disable the persistent serialize arena")
     ap.add_argument("--upload-store", default=None,
-                    help="object-store tier (not ported: raises)")
+                    help="object-store spec for the second durability "
+                         "tier (a directory path or file:// URL uses the "
+                         "built-in mock bucket; registered scheme:// URLs "
+                         "reach real stores). Selects the "
+                         "fastpersist-tiered backends: sealed shards "
+                         "stream to the store AFTER each local commit, "
+                         "and --restore falls back to the store when the "
+                         "local checkpoint directory is empty/lost")
     ap.add_argument("--peers", default=None,
-                    help="peer-replication tier (not ported: raises)")
+                    help="comma-separated peer-replication targets "
+                         "([name=]store[@failure_domain], e.g. "
+                         "/mnt/peers/n1@rack0,/mnt/peers/n2@rack1): "
+                         "after each local commit the sealed generation "
+                         "streams to K peers in the background "
+                         "(DESIGN.md §11); --restore falls back to the "
+                         "peer tier when the local dir is lost")
+    ap.add_argument("--replication-factor", type=int, default=2,
+                    help="replicas each checkpoint should reach on the "
+                         "peer tier (spread across distinct failure "
+                         "domains when available)")
+    ap.add_argument("--failure-domain", default=None,
+                    help="this node's failure domain; peer placement "
+                         "avoids it whenever another usable domain "
+                         "exists")
+    ap.add_argument("--hydrate-readers", type=int, default=4,
+                    help="concurrent ranged-GET readers for remote/peer "
+                         "hydration — missing bytes are byte-striped "
+                         "this wide when the store supports ranged "
+                         "reads (DESIGN.md §12)")
     ap.add_argument("--serve-cache-mb", type=int, default=0,
-                    help="serving read cache (not ported: raises)")
+                    help="serving read-cache budget in MiB (0 = off): "
+                         "hydration and per-tensor remote reads go "
+                         "through a digest-keyed LRU block cache under "
+                         "<ckpt-dir>/.serve-cache (DESIGN.md §12)")
     ap.add_argument("--restore", action="store_true")
     ap.add_argument("--restore-tier", default="local",
                     choices=["local", "peer", "remote"],
-                    help="only the local tier is ported")
+                    help="force --restore to hydrate from the peer tier "
+                         "or the object store (remote) instead of local "
+                         "NVMe")
     ap.add_argument("--restore-readers", default="auto",
                     help="parallel-restore reader workers: 'auto', an "
                          "integer, or 'none' for the single-reader load")
     args = ap.parse_args(argv)
-    if args.restore_tier != "local":
-        raise NotImplementedError(
-            "restoring from the peer or remote tier is not ported yet: "
-            "ROADMAP.md queue A item 5")
     restore_readers = (None if args.restore_readers == "none"
                        else args.restore_readers if
                        args.restore_readers == "auto"
@@ -121,7 +147,10 @@ def main(argv=None):
             upload=args.upload_store,
             replicate_peers=(args.peers.split(",") if args.peers
                              else None),
+            replication_factor=args.replication_factor,
+            failure_domain=args.failure_domain,
             keyframe_every=args.keyframe_every,
+            hydrate_readers=args.hydrate_readers,
             serve_cache_mb=args.serve_cache_mb,
             fp=FastPersistConfig(
                 strategy=args.writers,
@@ -141,7 +170,7 @@ def main(argv=None):
 
     start = 0
     if args.restore and ckpt:
-        start = tr.restore()
+        start = tr.restore(tier=args.restore_tier)
         print(f"restored from step {start}")
     state, metrics = tr.run(start_step=start)
     print(f"done: loss={float(metrics.get('loss', float('nan'))):.4f} "

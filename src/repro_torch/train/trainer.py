@@ -27,6 +27,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.checkpointer import FastPersistConfig
 from repro_torch.core.engine import CheckpointEngine, CheckpointSpec
+from repro_torch.core.retention import RetentionManager, RetentionPolicy
 from repro_torch.data.pipeline import DataConfig, TokenStream
 from repro_torch.models.registry import build_model
 from repro_torch.optim.adam import AdamConfig
@@ -44,9 +45,7 @@ class CheckpointPolicy:
     backend: Optional[str] = None      # explicit engine backend name;
     #                                    overrides mode/pipeline when set
     fp: FastPersistConfig = field(default_factory=FastPersistConfig)
-    #: step retention (the reference's RetentionPolicy): not ported yet,
-    #: ROADMAP.md queue A item 5 — setting it raises
-    retention: Optional[object] = None
+    retention: Optional[RetentionPolicy] = None   # None = keep everything
     #: shard destination volume roots (one per SSD/mount); None = all
     #: shards under ``directory``
     volumes: Optional[list] = None
@@ -54,21 +53,38 @@ class CheckpointPolicy:
     #: "auto" sizes to the saved shard count (capped by CPUs), an int
     #: forces that many, None keeps the single-reader load
     restore_readers: Optional[object] = "auto"
-    #: durability tiers of the reference (object store, peers, serving
-    #: cache): not ported yet, the engine raises when one is set
+    #: second durability tier (DESIGN.md §8): object-store spec (path /
+    #: ``file://`` / registered ``scheme://`` URL / ObjectStore). When
+    #: set with mode="fastpersist", the engine runs a tiered backend:
+    #: sealed generations stream to the store after each local commit,
+    #: and ``Trainer.restore`` can hydrate from it (``tier="remote"``,
+    #: or automatically when the local directory is empty/lost).
     upload: Optional[object] = None
+    #: peer-replication tier (DESIGN.md §11): ``[name=]store[@domain]``
+    #: specs / PeerConfig / store objects. After each local commit the
+    #: sealed generation streams to K peers in the background;
+    #: ``Trainer.restore(tier="peer")`` (or the automatic lost-node
+    #: fallback) hydrates from the healthiest peer, falling back to the
+    #: remote tier.
     replicate_peers: Optional[list] = None
-    serve_cache_mb: int = 0
+    #: replicas each checkpoint should reach (spread across distinct
+    #: failure domains when available)
+    replication_factor: int = 2
+    #: this node's failure domain — peer placement avoids it whenever
+    #: any other usable domain exists
+    failure_domain: Optional[str] = None
     #: incremental delta checkpoints (DESIGN.md §9): every Nth save is a
     #: full keyframe; copied into ``fp.keyframe_every`` unless the
     #: FastPersistConfig already sets it
     keyframe_every: int = 1
+    #: range-fetch readers for remote/peer hydration (DESIGN.md §12)
+    hydrate_readers: int = 4
+    #: serving read cache budget in MiB (DESIGN.md §12): 0 disables;
+    #: > 0 routes hydration and per-tensor remote reads through a
+    #: digest-keyed LRU block cache under ``<directory>/.serve-cache``
+    serve_cache_mb: int = 0
 
     def __post_init__(self):
-        if self.retention is not None:
-            raise NotImplementedError(
-                "checkpoint retention is not ported yet: ROADMAP.md queue "
-                "A item 5")
         if self.keyframe_every > 1 and self.fp.keyframe_every == 1:
             self.fp = dataclasses.replace(self.fp,
                                           keyframe_every=self.keyframe_every)
@@ -120,17 +136,32 @@ class Trainer:
         self.train_step = make_train_step(self.model, cfg.opt, cfg.gas)
         self.state: Optional[TrainState] = None
         self.engine: Optional[CheckpointEngine] = None
+        self._retain: Optional[RetentionManager] = None
         self.iter_times = []
         self.ckpt_stall = 0.0
         #: SaveHandle of every save this trainer submitted, in order
         self.saves = []
         if cfg.checkpoint and cfg.checkpoint.backend_name() != "none":
-            pol = cfg.checkpoint
-            self.engine = CheckpointEngine(CheckpointSpec(
-                directory=pol.directory, backend=pol.backend_name(),
-                fp=pol.fp, volumes=pol.volumes, upload_store=pol.upload,
-                peers=pol.replicate_peers,
-                serve_cache_mb=pol.serve_cache_mb))
+            self._setup_checkpointer(cfg.checkpoint)
+
+    def _setup_checkpointer(self, pol: CheckpointPolicy):
+        self.engine = CheckpointEngine(CheckpointSpec(
+            directory=pol.directory, backend=pol.backend_name(), fp=pol.fp,
+            volumes=pol.volumes, upload_store=pol.upload,
+            peers=pol.replicate_peers,
+            replication_factor=pol.replication_factor,
+            failure_domain=pol.failure_domain,
+            hydrate_readers=pol.hydrate_readers,
+            serve_cache_mb=pol.serve_cache_mb))
+        # GC follows the engine's volume mapping (or deleting a step would
+        # strand its striped shards), and sees the upload and peer queues,
+        # so it never deletes a step whose remote COMMIT has not landed
+        # (DESIGN §8) or whose replication is short of the target (§11)
+        if pol.retention:
+            self._retain = RetentionManager(
+                pol.directory, pol.retention, self.engine.volume_roots(),
+                upload=self.engine.upload_manager,
+                peers=self.engine.peer_replicator)
 
     # ------------------------------------------------------------ state
     def init_state(self, seed: Optional[int] = None):
@@ -146,20 +177,50 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
 
-    def restore(self, step: Optional[int] = None) -> int:
+    def restore(self, step: Optional[int] = None,
+                tier: str = "local") -> int:
         """Resume from the most recent committed checkpoint (any backend,
         either package) through the parallel restore pipeline
-        (``restore_readers``). Returns the step; 0 when there is none."""
+        (``restore_readers``). Returns the step; 0 when there is none.
+
+        ``tier="peer"`` forces hydration from the peer tier (DESIGN.md
+        §11; itself falling back to remote when no peer holds a complete
+        chain); ``tier="remote"`` from the object tier. With the default
+        ``"local"``, a trainer whose local directory holds no committed
+        step walks the tiers automatically — peer first when the policy
+        replicates to peers, then the upload store (the lost-node
+        recovery path, DESIGN.md §8/§11)."""
         assert self.engine is not None, "no checkpoint engine configured"
-        step = step if step is not None else self.engine.latest_step()
-        if step is None:
-            return 0
+        if tier not in ("local", "peer", "remote"):
+            raise ValueError(f"tier must be 'local', 'peer' or "
+                             f"'remote', got {tier!r}")
+        forced = tier != "local"
+        use_tier = tier
+        if not forced and step is None \
+                and self.engine.latest_step() is None:
+            if self.engine.peer_replicator is not None:
+                use_tier = "peer"       # local tier empty/lost → peer
+            elif self.engine.remote_store is not None:
+                use_tier = "remote"     # ... → remote
+        if use_tier == "local":
+            step = step if step is not None else self.engine.latest_step()
+            if step is None:
+                return 0
         # the structure to rebuild, without storage
         like = init_train_state(self.model, self.cfg.seed, "meta")
         readers = (self.cfg.checkpoint.restore_readers
                    if self.cfg.checkpoint else None)
-        restored, manifest = self.engine.load(step, like=like,
-                                              parallel=readers)
+        try:
+            restored, manifest = self.engine.load(
+                step, like=like, parallel=readers, tier=use_tier)
+        except FileNotFoundError:
+            # only the AUTOMATIC fallback may degrade to a fresh start; an
+            # operator who asked for the peer/remote tier must hear that
+            # it is empty (a mistyped store path would otherwise silently
+            # retrain from scratch)
+            if use_tier != "local" and step is None and not forced:
+                return 0                # no tier has a checkpoint
+            raise
         # COPY: the tensors are views into the engine's read arena, which
         # the next load refills — the state must own its storage (§7)
         self.state = tree_map(lambda t: t.to(self.device, copy=True),
@@ -169,7 +230,7 @@ class Trainer:
         if "data" in extras:
             self.data = TokenStream.from_state(self.data.cfg, extras["data"],
                                                device=self.device)
-        return int(extras.get("step", step))
+        return int(extras.get("step", step if step is not None else 0))
 
     # ------------------------------------------------------------- loop
     def _save(self, step: int):
@@ -198,6 +259,8 @@ class Trainer:
             if pol and self.engine is not None \
                     and (step + 1) % pol.every == 0:
                 self._save(step + 1)
+                if self._retain is not None:
+                    self._retain.after_commit()
             self.iter_times.append(time.perf_counter() - t0)
             if (step + 1) % self.cfg.log_every == 0:
                 print(f"step {step+1}: loss={float(metrics['loss']):.4f} "
@@ -205,6 +268,11 @@ class Trainer:
         if self.engine is not None:
             t_w = time.perf_counter()
             self.engine.drain()     # commit stragglers, park the worker
+            # a CLEAN exit also flushes the upload and peer tiers (their
+            # workers are daemon threads — returning now would abandon
+            # the tail generations' remote/peer COMMITs)
+            self.engine.wait_uploaded()
+            self.engine.wait_replicated()
             self.ckpt_stall += time.perf_counter() - t_w
         self._sync()
         return self.state, metrics

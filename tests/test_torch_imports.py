@@ -48,6 +48,38 @@ print("imported", len(names), "modules")
     assert n >= 20          # every module of the slice was imported
 
 
+TIER_MODULES = ["repro_torch.core." + m for m in
+                ("retry", "upload", "peer", "serve", "retention", "pipeline",
+                 "overlap")] + ["repro_torch.sharding",
+                                "repro_torch.sharding.specs"]
+
+
+def test_tier_modules_import_no_jax():
+    """The modules of the durability-tier slice exist and import nothing
+    of JAX, the JAX package or ml_dtypes; ``repro_torch.core`` exports
+    what ``repro.core`` exports."""
+    code = f"""
+import importlib, sys
+for name in {TIER_MODULES!r}:
+    importlib.import_module(name)
+from repro_torch.sharding.specs import zero1_ownership
+import repro_torch.core as core
+want = ["LocalObjectStore", "ObjectStore", "UploadManager", "UploadStats",
+        "hydrate", "make_store", "register_store_scheme", "remote_steps",
+        "PipelinedCheckpointer", "PipelineStats", "IterationModel",
+        "estimate_iteration", "effective_overhead", "CheckpointBackend",
+        "EngineStats", "register_backend", "DeltaPlan", "dirty_byte_spans"]
+missing = [n for n in want if not hasattr(core, n)]
+assert not missing, missing
+bad = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r})
+assert not bad, bad
+print("ok")
+"""
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_chip_smoke_fails_without_cuda():
     out = _run(["chip_smoke.py"], env_extra={"CUDA_VISIBLE_DEVICES": ""})
     assert out.returncode != 0

@@ -136,10 +136,44 @@ def test_cuda_without_a_card_raises(monkeypatch, tmp_path):
     (["--failure-domain", "rack0"], SystemExit),
     (["--hydrate-readers", "8"], SystemExit),
 ])
-def test_launcher_tier_flags_are_never_silent(tmp_path, flags, error):
-    """The durability tiers are not ported: their flags raise, and the
-    flags that only tune a tier are not accepted at all."""
-    with pytest.raises(error):
-        launch.main(["--arch", "stablelm_1_6b", "--reduced", "--steps", "1",
-                     "--device", "cpu", "--ckpt-dir", str(tmp_path)]
-                    + flags)
+def test_launcher_tier_flags_are_never_silent(tmp_path, monkeypatch, flags,
+                                              error):
+    """The durability tiers are ported: each tier flag reaches the
+    trainer's checkpoint policy with the reference's meaning (``error``
+    names what the flag did before the tiers were ported). The trainer
+    is stubbed: the flags' end-to-end runs are in
+    test_torch_tiered_trainer.py."""
+    seen = {}
+
+    class Probe:
+        iter_times, ckpt_stall = [0.0], 0.0
+
+        def __init__(self, cfg, device):
+            seen["pol"], seen["device"] = cfg.checkpoint, device
+
+        def restore(self, tier="local"):
+            seen["tier"] = tier
+            return 0
+
+        def run(self, start_step=0):
+            return None, {}
+
+    monkeypatch.setattr(launch, "Trainer", Probe)
+    flags = [f.replace("/x", str(tmp_path / "x")) for f in flags]
+    launch.main(["--arch", "stablelm_1_6b", "--reduced", "--steps", "1",
+                 "--device", "cpu", "--ckpt-dir", str(tmp_path), "--restore"]
+                + flags)
+    pol, flag, value = seen["pol"], flags[0], flags[1]
+    got = {"--peers": pol.replicate_peers, "--upload-store": pol.upload,
+           "--serve-cache-mb": pol.serve_cache_mb,
+           "--restore-tier": seen["tier"],
+           "--replication-factor": pol.replication_factor,
+           "--failure-domain": pol.failure_domain,
+           "--hydrate-readers": pol.hydrate_readers}[flag]
+    want = {"--peers": [value], "--serve-cache-mb": 8,
+            "--replication-factor": 2, "--hydrate-readers": 8}.get(
+        flag, value)
+    assert got == want
+    assert pol.backend_name() == ("fastpersist-tiered-pipelined"
+                                  if flag == "--upload-store"
+                                  else "fastpersist-pipelined")
