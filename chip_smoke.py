@@ -8,12 +8,17 @@ Phases, each of which exits non-zero on failure:
 1. the card: name and power limit (``nvidia-smi``);
 2. build: compile the three CUDA sources of ``src/repro_torch`` (one
    ``nvcc`` each, in parallel), with each kernel's registers and spills
-   (``ptxas -v``) and dynamic shared memory per block;
+   (``ptxas -v``), dynamic shared memory per block, and the tensor-core
+   (HMMA) and FFMA instructions of each flash_attention body in its SASS
+   (``cuobjdump``);
 3. kernels: every kernel held against its plain PyTorch version on the
    card — ckpt_pack bit-exact at the shapes of the main path plus ragged,
    NaN, ±0.0, all-clean and one-dirty cases; flash_attention (bf16 on
-   its tensor-core body, f32 on its f32-FMA body, every variant in both;
-   SDPA timed on the path's bf16 and f32 inputs)
+   its bf16 tensor-core body, f32 on its 3xTF32 tensor-core body, at
+   head dims 64, 80, 96 and 128 — the path's, gpt3_2_7b's and
+   gpt3_0_7b's widths among them — and every variant in both; SDPA
+   timed on the path's bf16 and f32 inputs, the f32 body and SDPA f32
+   also at the two GPT-3 widths)
    and ssd_intra_chunk (B and C per head, from one group expanded over
    the heads as the path passes them, two groups repeated, ragged
    chunks) within the reference's tolerances at the paths' shapes and
@@ -33,7 +38,8 @@ Phases, each of which exits non-zero on failure:
    trainer's next batch, bf16 on the bf16 params and f32 on the master
    weights, against the same forward through the plain attention;
    flash_attention launch counts read around it; then a second, warm
-   bf16 loss timed beside the first, with B3's share of it;
+   bf16 loss and f32 forward timed beside the first, with B3's share of
+   each;
 7. quantized save: the restored state saved with ``quantize=True``
    (int8 per block of 4096, scales from ckpt_pack_blocks on the card;
    its launch count read around the save), each record's kernel amax
@@ -102,6 +108,11 @@ BIG = (24, 2048, 5632)
 STEPS, BATCH, SEQ = 2, 4, 512
 #: attention of stablelm_1_6b on the main path's batch: (B, H, L, hd)
 ATTN = (BATCH, 32, SEQ, 64)
+#: the same batch at the published widths of the two configs whose head
+#: dims are neither 64 nor 128: gpt3_2_7b (2560 / 32) and gpt3_0_7b (1536
+#: / 16)
+ATTN_GPT3 = {"gpt3_2_7b": (BATCH, 32, SEQ, 80),
+             "gpt3_0_7b": (BATCH, 16, SEQ, 96)}
 #: mamba2_370m: batch x sequence of the forward, prompt and new tokens
 #: of the decode check, and ssd_intra_chunk's (b, nc, cl, h, p, n) there
 #: (B and C from its one group, expanded over the 32 heads)
@@ -191,10 +202,11 @@ def _zero_counts():
         w.launches = 0
 
 
-def _close(name, got, want, tol, rtol=None, quiet=False):
+def _close(name, got, want, tol, rtol=None, quiet=False, shares=None):
     """Fail unless |got - want| <= tol + rtol·|want| everywhere (rtol
     defaults to tol) and both are finite; returns the largest absolute
-    difference (printed unless ``quiet``)."""
+    difference (printed unless ``quiet``) and appends the largest share
+    of the allowance to ``shares`` if given."""
     import torch
     got, want = got.float(), want.float()
     if got.shape != want.shape:
@@ -210,6 +222,8 @@ def _close(name, got, want, tol, rtol=None, quiet=False):
     if bad:
         fail(f"{name}: {bad} elements beyond tolerance {tol} (rtol {rtol};"
              f" max abs err {worst})")
+    if shares is not None:
+        shares.append(share)
     if not quiet:
         print(f"  ok {name}: tol {tol} (rtol {rtol}), max_abs_err {worst}, "
               f"largest share of the allowance {share:.3f}", flush=True)
@@ -402,10 +416,12 @@ def check_kernels(device) -> list:
 
 def check_attention(device) -> dict:
     """Phase 3, B3: flash_attention against its plain version at the main
-    path's shape (bf16 and f32, the model's strided views) and at the
-    reference's sweep and variants (tests/test_kernels.py:126-166, at its
-    tolerances). Returns the ``kernels`` entry (launches filled in by
-    phase 6)."""
+    path's shape and at gpt3_2_7b's and gpt3_0_7b's widths (bf16 and f32,
+    the model's strided views) and at the reference's sweep and variants
+    (tests/test_kernels.py:126-166, at its tolerances), at head dims 64,
+    80, 96 and 128. Times the f32 body beside SDPA f32 at the three
+    widths. Returns the ``kernels`` entry (launches filled in by phase
+    6)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops
@@ -420,7 +436,10 @@ def check_attention(device) -> dict:
         return [t.to(dtype).transpose(1, 2) for t in (q, k, v)]
 
     err = 0.0
-    cases = [("path", ATTN[:2] + (ATTN[1], ATTN[2], ATTN[2], ATTN[3]), {})]
+    shares = {torch.bfloat16: [], torch.float32: []}
+    widths = {"path": ATTN, **ATTN_GPT3}
+    cases = [(name, (B, H, H, L, L, hd), {})
+             for name, (B, H, L, hd) in widths.items()]
     cases += [("sweep", (B, H, KV, L, L, hd), {}) for B, H, KV, L, hd in (
         (1, 4, 4, 128, 64), (2, 8, 2, 256, 64), (1, 4, 1, 384, 128),
         (1, 2, 2, 100, 64), (1, 4, 2, 200, 128))]
@@ -430,8 +449,13 @@ def check_attention(device) -> dict:
     cases += [("variant", (1, 4, 4, 128, 512, 64), {"causal": False}),
               ("variant", (1, 2, 2, 256, 128, 64), {"window": 32}),
               ("variant", (2, 2, 2, 77, 300, 128), {"causal": False})]
+    for hd in (80, 96):
+        cases += [("variant", (1, 4, 2, 200, 200, hd),
+                   {"window": 48, "cap": 30.0}),
+                  ("variant", (2, 2, 2, 77, 300, hd), {"causal": False})]
     print("  flash_attention (B3) against flash_attention_plain (bf16: "
-          "tensor-core body; f32: f32-FMA body):", flush=True)
+          "bf16 tensor-core body; f32: 3xTF32 tensor-core body):",
+          flush=True)
     for kind, shape, kw in cases:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = qkv(*shape, dtype)
@@ -441,47 +465,62 @@ def check_attention(device) -> dict:
             tol = (TOL_ATTN_BF16 if dtype == torch.bfloat16 else
                    TOL_ATTN_VARIANT if kind == "variant" else TOL_ATTN_F32)
             err = max(err, _close(f"{kind} {str(dtype)[6:]} {shape} {kw}",
-                                  got, want, tol))
+                                  got, want, tol, shares=shares[dtype]))
+    print(f"  largest share of the allowance over the {len(cases)} cases: "
+          f"bf16 {max(shares[torch.bfloat16]):.3f}, f32 "
+          f"{max(shares[torch.float32]):.3f}", flush=True)
 
-    # times at the main path's shape: bf16, causal, the model's views
-    B, H, L, hd = ATTN
-    q, k, v = qkv(B, H, H, L, L, hd, torch.bfloat16)
-    ms = _cuda_ms(lambda: ops.flash_attention(q, k, v))
-    graph_ms = _graph_ms(lambda: ops.flash_attention(q, k, v))
-    plain_ms = _cuda_ms(lambda: flash_attention_plain(q, k, v))
-    q32, k32, v32 = (t.float() for t in (q, k, v))
+    def timed(B, H, L, hd, dtype, plain=False):
+        """Kernel and SDPA (the yardstick only: the port never calls it)
+        on the same causal inputs, events and in a CUDA graph, the plain
+        version too if ``plain``, and the kernel's bound: f32 products
+        at three TF32 products each."""
+        q, k, v = qkv(B, H, H, L, L, hd, dtype)
+        n_bytes = 4 * B * H * L * hd * q.element_size()
+        flops = 4 * hd * B * H * L * (L + 1) // 2    # causal pairs only
+        rate = BF16_FLOPS if dtype == torch.bfloat16 else F32_SPLIT_FLOPS
+        bound_ms, bound_by = _bound(n_bytes, flops / rate)
 
-    # the yardstick only: the port never calls it
-    def sdpa32():
-        return F.scaled_dot_product_attention(q32, k32, v32, is_causal=True)
-    f32 = {"ms": _cuda_ms(lambda: ops.flash_attention(q32, k32, v32)),
-           "graph_ms": _graph_ms(lambda: ops.flash_attention(q32, k32, v32)),
-           "library_ms": _cuda_ms(sdpa32),
-           "library_graph_ms": _graph_ms(sdpa32)}
-    print(f"  time flash_attention f32 causal {ATTN} (its f32-FMA body, the "
-          f"f32 scoring in phase 6): {f32['ms']:.4f} ms (in a CUDA graph "
-          f"{f32['graph_ms']:.4f} ms); SDPA on the same f32 inputs "
-          f"{f32['library_ms']:.4f} ms (in a CUDA graph "
-          f"{f32['library_graph_ms']:.4f} ms)", flush=True)
-    del q32, k32, v32
+        def kernel():
+            return ops.flash_attention(q, k, v)
 
-    def sdpa():
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
-    library_ms = _cuda_ms(sdpa)
-    library_graph_ms = _graph_ms(sdpa)
-    n_bytes = 4 * B * H * L * hd * q.element_size()
-    flops = 4 * hd * B * H * L * (L + 1) // 2        # causal pairs only
-    bound_ms, bound_by = _bound(n_bytes, flops / BF16_FLOPS)
-    entry = {"name": "flash_attention", "route": "cuda",
-             "source": f"{CSRC}/flash_attention.cu",
-             "replaces": "src/repro/kernels/flash_attention.py:66",
-             "launches": 0, "max_abs_err": err, "ms": ms,
-             "plain_ms": plain_ms, "bound_ms": bound_ms,
-             "bound_by": bound_by, "library_ms": library_ms,
-             "shape": f"bf16 causal {ATTN}", "bytes": n_bytes,
-             "flops": flops, "graph_ms": graph_ms,
-             "library_graph_ms": library_graph_ms}
-    return entry
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        t = {"ms": _cuda_ms(kernel), "graph_ms": _graph_ms(kernel),
+             "library_ms": _cuda_ms(sdpa), "library_graph_ms": _graph_ms(sdpa),
+             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes,
+             "flops": flops}
+        if plain:
+            t["plain_ms"] = _cuda_ms(lambda: flash_attention_plain(q, k, v))
+        print(f"  time flash_attention {str(dtype)[6:]} causal "
+              f"{(B, H, L, hd)}: {t['ms']:.4f} ms (in a CUDA graph "
+              f"{t['graph_ms']:.4f} ms); SDPA {t['library_ms']:.4f} ms (in a "
+              f"CUDA graph {t['library_graph_ms']:.4f} ms)"
+              + (f"; plain {t['plain_ms']:.4f} ms" if plain else "") +
+              f"; bound {bound_ms:.4f} ms by {bound_by} ({n_bytes} B, "
+              f"{flops} FLOP at {rate / 1e12:.0f} TFLOP/s)", flush=True)
+        return t
+
+    # the f32 body (phase 6's f32 scoring) at the three widths, then the
+    # path's bf16 body: the entry's own numbers
+    f32 = timed(*ATTN, torch.float32, plain=True)
+    for B, H, L, hd in ATTN_GPT3.values():
+        for dtype in (torch.float32, torch.bfloat16):
+            timed(B, H, L, hd, dtype)
+    bf = timed(*ATTN, torch.bfloat16, plain=True)
+    return {"name": "flash_attention", "route": "cuda",
+            "source": f"{CSRC}/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:66",
+            "launches": 0, "max_abs_err": err, "ms": bf["ms"],
+            "plain_ms": bf["plain_ms"], "bound_ms": bf["bound_ms"],
+            "bound_by": bf["bound_by"], "library_ms": bf["library_ms"],
+            "f32_ms": f32["ms"], "f32_graph_ms": f32["graph_ms"],
+            "f32_plain_ms": f32["plain_ms"],
+            "f32_bound_ms": f32["bound_ms"], "f32_bound_by": f32["bound_by"],
+            "f32_library_ms": f32["library_ms"],
+            "shape": f"bf16 causal {ATTN}", "bytes": bf["bytes"],
+            "flops": bf["flops"], "graph_ms": bf["graph_ms"],
+            "library_graph_ms": bf["library_graph_ms"]}
 
 
 def check_ssd(device) -> dict:
@@ -696,14 +735,15 @@ def main_path(device, steps: int, batch: int, seq: int):
 
 
 # ---------------------------------------------------------------- phase 6
-def score_restored(cfg, state, batch, kernel_ms: float):
+def score_restored(cfg, state, batch, kernel_ms: float, kernel_ms32: float):
     """Phase 6: score the restored state with the kernel forward path
     (``build_model(use_kernels=True)``) on the trainer's next batch, in
     bf16 on the bf16 params and in f32 on the master weights, against the
     same forward through ``flash_attention_plain``. Returns the
     flash_attention launch count of the phase. Then a second, warm call
-    of the bf16 loss (after the count is read) is timed beside the first,
-    with B3's share at phase 3's ``kernel_ms`` per launch.
+    of the bf16 loss and of the f32 forward (after the count is read) is
+    timed beside the first, with B3's share at phase 3's ``kernel_ms``
+    (bf16) and ``kernel_ms32`` (f32) per launch.
 
     Tolerances: f32 logits within 1e-3 (the reference's model-level
     tolerance, tests/test_use_pallas.py: the same f32 math, summed in
@@ -782,7 +822,11 @@ def score_restored(cfg, state, batch, kernel_ms: float):
         # f32 compute on the f32 master weights
         model32 = build_model(cfg, dtype=torch.float32, use_kernels=True)
         n = ops.flash_attention.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         logits, _ = model32.forward(state.opt.master, batch)
+        torch.cuda.synchronize()
+        wall32 = time.perf_counter() - t0
         n = ops.flash_attention.launches - n
         if n != cfg.n_layers:
             fail(f"the f32 forward launched flash_attention {n} times; "
@@ -799,11 +843,18 @@ def score_restored(cfg, state, batch, kernel_ms: float):
         t0 = time.perf_counter()
         warm_loss = float(model.loss(state.params, batch))
         warm = time.perf_counter() - t0
-    share = cfg.n_layers * kernel_ms
-    print(f"  bf16 loss: first call {wall:.4f} s, warm call {warm:.4f} s "
-          f"(loss {warm_loss:.6f}); B3's {cfg.n_layers} launches at phase "
-          f"3's {kernel_ms:.4f} ms: {share:.3f} ms, "
-          f"{100 * share / 1e3 / warm:.1f} % of the warm call", flush=True)
+        t0 = time.perf_counter()
+        model32.forward(state.opt.master, batch)
+        torch.cuda.synchronize()
+        warm32 = time.perf_counter() - t0
+    for what, first, again, per in (
+            (f"bf16 loss (loss {warm_loss:.6f})", wall, warm, kernel_ms),
+            ("f32 forward", wall32, warm32, kernel_ms32)):
+        share = cfg.n_layers * per
+        print(f"  {what}: first call {first:.4f} s, warm call {again:.4f} "
+              f"s; B3's {cfg.n_layers} launches at phase 3's {per:.4f} ms: "
+              f"{share:.3f} ms, {100 * share / 1e3 / again:.1f} % of the "
+              f"warm call", flush=True)
     return launches
 
 
@@ -1410,6 +1461,41 @@ def tiers(device, disk_peak: int) -> int:
         shutil.rmtree(peer_root, ignore_errors=True)
 
 
+def sass_check():
+    """Phase 2: the instructions of each flash_attention body in the SASS
+    that ``cuobjdump`` reads from the built library. Fails unless every
+    body does its products on the tensor cores (HMMA: bf16 in the bf16
+    body, TF32 in the f32 one); the FFMA count is printed beside them
+    (the softmax's exp2f and the f32 output's division use FFMA)."""
+    import re
+    from collections import Counter
+
+    from repro_torch.kernels import build
+    tool = Path(build._nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        print(f"  sass: {tool} not found, SASS not read", flush=True)
+        return
+    sass = subprocess.run(
+        [str(tool), "-sass", str(build.library_path("flash_attention"))],
+        capture_output=True, text=True, check=True).stdout
+    for body in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = body.split("\n", 1)[0]
+        kernel = re.search(r"(flash_tc_kernel|flash_tf32_kernel)ILi(\d+)E",
+                           name)
+        if kernel is None:
+            continue
+        ops = Counter(re.findall(
+            r"^\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)", body,
+            re.M))
+        hmma = {o: n for o, n in ops.items() if o.startswith("HMMA")}
+        ffma = sum(n for o, n in ops.items() if o.split(".")[0] == "FFMA")
+        print(f"  sass {kernel[1]} hd {kernel[2]}: {hmma}, FFMA {ffma}",
+              flush=True)
+        want = "TF32" if kernel[1] == "flash_tf32_kernel" else "BF16"
+        if not any(o.endswith(want) for o in hmma):
+            fail(f"{kernel[1]} hd {kernel[2]}: no HMMA {want} in its SASS")
+
+
 def main():
     argparse.ArgumentParser(
         description=__doc__.split("\n")[0],
@@ -1439,10 +1525,11 @@ def main():
                 print(f"  ptxas {name}: {line.strip()}")
     from repro_torch.kernels import flash_attention as fa, ssd_scan
     smem = {f"flash_attention {dt} hd {hd}": fa.smem_bytes(hd, dt)
-            for dt in (torch.bfloat16, torch.float32) for hd in (64, 128)}
+            for dt in (torch.bfloat16, torch.float32) for hd in fa.HEAD_DIMS}
     smem[f"ssd_intra_chunk {SSD} (C Bᵀ, per head)"] = ssd_scan.smem_bytes(
         SSD[2], SSD[4], SSD[5])
     print(f"  dynamic shared memory per block, bytes: {smem}", flush=True)
+    sass_check()
 
     # float32 products in full precision (cuDNN is not used)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1464,8 +1551,8 @@ def main():
     launches, cfg, state, batch, extras, disk_peak = main_path(
         device, STEPS, BATCH, SEQ)
     ms = {e["name"]: e["ms"] for e in entries}
-    launches["flash_attention"] = score_restored(cfg, state, batch,
-                                                 ms["flash_attention"])
+    launches["flash_attention"] = score_restored(
+        cfg, state, batch, ms["flash_attention"], entries[2]["f32_ms"])
     del batch
     torch.cuda.empty_cache()
     launches["ckpt_pack_blocks"] = quantized_save(cfg, state, extras, device)

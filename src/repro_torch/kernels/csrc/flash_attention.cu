@@ -2,63 +2,91 @@
 //
 // Replaces the TPU Pallas kernel src/repro/kernels/flash_attention.py
 // (flash_attention, body _kernel). q (B, H, Lq, hd); k, v (B, KV, Lk, hd)
-// with GQA (kv head = h / (H / KV)); out like q. Optional causal mask,
-// sliding window (q - k < window) and soft-cap cap * tanh(s / cap).
+// with GQA (kv head = h / (H / KV)); out like q. Head dims 64, 80, 96 and
+// 128: every head dim that the repo's configs send to the kernel (the
+// Pallas kernel tiles the whole head dim and takes any). Optional causal
+// mask, sliding window (q - k < window) and soft-cap cap * tanh(s / cap).
 // Common to both bodies below: scores, the running max, sum and
 // accumulator are f32; masked logits are -1e30 (not -inf: a row that has
 // seen no valid key yet gets p = 1 for its masked keys, which the first
 // valid key rescales away with alpha = exp(-1e30 - m) = 0, where -inf
-// would give NaN); out = acc / max(l, 1e-30); expf, exp2f and tanhf are
-// IEEE (no fast math). The TPU kernel carries (m, l, acc) in scratch across an
+// would give NaN); out = acc / max(l, 1e-30); exp2f and tanhf are IEEE
+// (no fast math). The TPU kernel carries (m, l, acc) in scratch across an
 // ordered grid axis over K blocks. Blocks here run in no order, so one
 // block owns a (b, h, 64-row q tile) and loops over the 64-key K/V tiles
-// itself, (m, l, acc) in registers. Keys >= Lk are masked in the kernel
-// (zero-filled tiles, p = 0); nothing is padded on the host. Causal
-// without a window: K tiles wholly above the diagonal are skipped. That
-// is exact: key 0 is valid for every row, so the row max is a real logit
-// from the first tile on and a skipped key's p would be exactly
+// itself, (m, l, acc) in registers; the last q tiles, which have the most
+// keys under a causal mask, start first. Keys >= Lk are masked in the
+// kernel (zero-filled tiles, p = 0); nothing is padded on the host.
+// Causal without a window: K tiles wholly above the diagonal are skipped.
+// That is exact: key 0 is valid for every row, so the row max is a real
+// logit from the first tile on and a skipped key's p would be exactly
 // exp(-1e30 - m) = 0. With a window every tile is visited, so a row with
 // no valid key at all averages v over the Lk keys, as the reference's
 // flash_attention_ref does.
 //
-// Bound at the path's shape (stablelm_1_6b, (4, 32, 512, 64) bf16,
-// causal): 33.6 MB of q, k, v and out = 10.0 us at 3.35 TB/s, against
-// 4.3 GFLOP = 4.3 us at the bf16 tensor-core rate: bytes. f32 FMAs alone
-// (67 TFLOP/s) would need 64 us, so only the tensor cores get near it.
-//
-// bf16 body (flash_tc_kernel), the path's: tensor cores through
-// mma.sync.m16n8k16 (bf16 in, f32 accumulate). 128 threads, 4 warps, each
-// owning 16 q rows. The Q tile and two stages of 64-key K/V tiles stay
-// bf16 in shared memory, rows padded to hd + 8 elements (16 B apart mod
-// 128 B) so ldmatrix reads them free of bank conflicts; K/V tile k+1 is
-// brought in by cp.async (16 B a thread) while tile k computes. The
+// Both bodies share one skeleton: 128 threads, 4 warps, each owning 16 q
+// rows of the 64-row q tile; the Q tile and a two-stage ring of 64-key
+// K/V tiles in shared memory, rows padded by 16 bytes, K/V tile k+1
+// brought in by cp.async (16 B a thread) while tile k computes; the
 // strided (B, L, H, hd) views are read in place through their row
-// strides. S = Q K^T: Q's fragments are loaded once (ldmatrix), K's by
-// ldmatrix per k16 step, S (16 x 64 per warp) in f32 registers. bf16
-// products are exact in f32, so this is the reference's f32 dot of
-// upcast q and k, summed in another order. The softmax runs on the
-// accumulator fragments: a row lives on one quad of threads, so its max
-// and sum take two shuffles. O += P V: P is rounded to bf16 in registers
-// (the accumulator layout of two adjacent n8 tiles is the A layout of
-// one k16 step, so P never touches shared memory) and V is fed by
+// strides. S (16 x 64 per warp) lives in the mma accumulator layout, where
+// a row lies on one quad of threads: the softmax runs on those registers
+// (row max and sum take two shuffles) and P feeds P V straight from them,
+// never through shared memory. Logits are kept in base 2 (times log2 e),
+// so each weight is one exp2f.
+//
+// bf16 body (flash_tc_kernel): mma.sync.m16n8k16 (bf16 in, f32
+// accumulate). Rows of hd + 8 elements (16 B apart mod 128 B, an odd
+// number of 16-byte units at every head dim taken) so ldmatrix reads
+// them free of bank conflicts. Q's fragments are loaded once, K's by
+// ldmatrix per k16 step. bf16 products are exact in f32, so S is the
+// reference's f32 dot of upcast q and k, summed in another order. O += P
+// V: P is rounded to bf16 in registers (the accumulator layout of two
+// adjacent n8 tiles is the A layout of one k16 step) and V is fed by
 // ldmatrix.trans. That rounding is the one departure from the reference,
 // which keeps p in f32: it adds at most 2^-9 relative per weight, below
 // the bf16 output's own 2^-8 rounding, inside the bf16 tolerance 2e-2.
-// The row sum l is taken over the f32 p. Why mma.sync and not wgmma/TMA:
-// on the tensor cores this shape is bytes-bound (4.3 GFLOP is 13 us even
-// at a third of the bf16 peak), so warpgroup MMA, TMA and warp
-// specialisation would buy little for their complexity.
+// The row sum l is taken over the f32 p. Bound at the path's shape
+// (stablelm_1_6b, (4, 32, 512, 64) causal): 33.6 MB of q, k, v and out =
+// 10.0 us at 3.35 TB/s, against 4.3 GFLOP = 4.3 us at the bf16
+// tensor-core rate: bytes.
 //
-// f32 body (flash_kernel), for float32 inputs: the f32 tolerance (2e-5)
-// rules out single-pass bf16 or TF32 products, so q, k and v are read as
-// f32 and every product is an f32 FMA. 256 threads: thread (ty, tx) =
-// (tid / 16, tid % 16) owns rows ty + 16 i and, for the scores, keys
-// tx + 16 j (i, j < 4), for the output columns tx + 16 j (j < hd / 16):
-// 4 x 4 register tiles, so each value read from shared memory feeds 4
-// FMAs. A row's 16 threads are one half-warp: row max and sum are warp
-// shuffles. Shared rows of q and k are padded to hd + 1 floats so the
-// column walks are free of bank conflicts. It is bound by shared-memory
-// loads (one 4-byte load per 2 FMAs).
+// f32 body (flash_tf32_kernel): 3xTF32 on the tensor cores. Every
+// operand x is split as hi = tf32(x), lo = tf32(x - hi) (to nearest), and
+// each product a.b is taken as hi_a.hi_b + hi_a.lo_b + lo_a.hi_b by
+// mma.sync.m16n8k8.tf32 with f32 accumulation; the dropped lo.lo term and
+// the roundings of lo are about 2^-21 relative per product, far inside
+// the f32 tolerance 2e-5 (single-pass TF32, 2^-11, is not). The small
+// terms go to accumulators of their own, added once at the end (S per
+// tile, O at the output), so the tensor cores' rounding of the long
+// hi.hi sums is not repeated for them. Rows of hd + 4 floats (16 B apart
+// mod 128 B): ldmatrix reads Q's and K's fragments (f32 as pairs of b16:
+// lane (g, t) gets element (g, t) of each 8 x 4 matrix) and the scalar
+// reads of V's fragment (lane (g, t) -> 2t (hd + 4) + g) are free of bank
+// conflicts at every head dim taken. Q, K and V stay f32 in shared
+// memory and each operand is split as its fragment is read: Q's 4 values
+// a thread per k8 step cost a quarter of K's. Splitting Q once per block
+// into hi and lo halves in shared memory was no faster at hd 64, 96 and
+// 128 and 21 % slower at hd 80, where the second half pushes the block
+// past 113 KB and halves the blocks per SM (measured on an H100 80GB
+// HBM3 at 700 W by scripts/flash_attention_ab.py). P stays in registers: a thread holds keys 2t and 2t + 1
+// of each n8 tile of S, and TF32's A fragment wants k positions t and
+// t + 4, so the keys of each k8 step are taken in the order 0, 2, 4, 6,
+// 1, 3, 5, 7 (position t is key 2t, position t + 4 is key 2t + 1), a sum
+// over keys being free of order, and V's fragment is read in the same
+// order. P is split in registers. out = acc / max(l, 1e-30) is a real
+// division: the f32 output has no rounding of its own to hide a
+// reciprocal. Bound at the path's shape ((4, 32, 512, 64) f32 causal,
+// phase 6's f32 scoring): 67.1 MB of q, k, v and out = 20.0 us at 3.35
+// TB/s, against 4.3 GFLOP at three TF32 products each (495/3 TFLOP/s) =
+// 26.1 us: operations. f32 FMAs alone (67 TFLOP/s) would need 64 us.
+//
+// Why mma.sync and not wgmma/TMA: the register fragments let P feed P V
+// without a trip through shared memory, at bf16 the shape is bytes-bound
+// (4.3 GFLOP is 13 us even at a third of the bf16 peak), and the f32
+// body is the bf16 body's skeleton with B4's (ssd_scan.cu) 3xTF32
+// products; warpgroup MMA, TMA and warp specialisation would buy little
+// here for their complexity.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -68,8 +96,7 @@ namespace {
 
 constexpr int kBQ = 64;          // q rows per block
 constexpr int kBK = 64;          // keys per tile
-constexpr int kThreads = 256;    // f32 body
-constexpr int kTcThreads = 128;  // bf16 tensor-core body: 4 warps
+constexpr int kThreads = 128;    // 4 warps of 16 q rows
 constexpr float kMask = -1e30f;  // the reference's NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -86,155 +113,20 @@ struct Params {
   int causal, window;    // window < 0: no window
 };
 
-// ------------------------------------------------------------ f32 body
-template <int HD>
-constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         (kBQ * (HD + 1) + kBK * (HD + 1) + kBK * HD + kBQ * (kBK + 1));
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kThreads) flash_kernel(const Params p) {
-  extern __shared__ float smem[];
-  constexpr int QS = HD + 1;       // padded row stride of Qs and Ks
-  constexpr int PS = kBK + 1;      // padded row stride of Ps
-  constexpr int NJ = HD / 16;      // output columns per thread
-  float* Qs = smem;                // [kBQ][QS]
-  float* Ks = Qs + kBQ * QS;       // [kBK][QS]
-  float* Vs = Ks + kBK * QS;       // [kBK][HD]
-  float* Ps = Vs + kBK * HD;       // [kBQ][PS]
-
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  // the last q tiles have the most keys under a causal mask: start them
-  // first
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
-  const int h = blockIdx.y, b = blockIdx.z, kvh = h / p.rep;
-  const float* q = static_cast<const float*>(p.q) + b * p.sq.b + h * p.sq.h;
-  const float* k =
-      static_cast<const float*>(p.k) + b * p.sk.b + kvh * p.sk.h;
-  const float* v =
-      static_cast<const float*>(p.v) + b * p.sv.b + kvh * p.sv.h;
-  float* o = static_cast<float*>(p.o) + b * p.so.b + h * p.so.h;
-
-  for (int i = tid; i < kBQ * HD; i += kThreads) {
-    const int r = i / HD, d = i % HD, qr = q0 + r;
-    Qs[r * QS + d] = qr < p.Lq ? q[qr * p.sq.l + d] : 0.f;
-  }
-
-  float m[4], l[4], acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kMask;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  }
-
-  const int q_last = min(q0 + kBQ, p.Lq) - 1;
-  int n_kt = (p.Lk + kBK - 1) / kBK;
-  if (p.causal && p.window < 0) n_kt = min(n_kt, q_last / kBK + 1);
-
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();               // the last tile's Ks, Vs, Ps are read
-    for (int i = tid; i < kBK * HD; i += kThreads) {
-      const int r = i / HD, d = i % HD, kr = k0 + r;
-      const bool in = kr < p.Lk;
-      Ks[r * QS + d] = in ? k[kr * p.sk.l + d] : 0.f;
-      Vs[r * HD + d] = in ? v[kr * p.sv.l + d] : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float a[4], c[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qs[(ty + 16 * i) * QS + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) c[j] = Ks[(tx + 16 * j) * QS + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], c[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty + 16 * i;
-      float mt = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        float x = s[i][j] * p.scale;
-        if (p.cap > 0.f) x = p.cap * tanhf(x / p.cap);
-        const bool ok = (!p.causal || qpos >= kpos) &&
-                        (p.window < 0 || qpos - kpos < p.window);
-        x = ok ? x : kMask;
-        s[i][j] = x;
-        if (kpos < p.Lk) mt = fmaxf(mt, x);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-      // every tile holds a key < Lk, so mt >= -1e30 and nothing is -inf
-      const float mn = fmaxf(m[i], mt);
-      const float alpha = expf(m[i] - mn);
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        const float pe = kpos < p.Lk ? expf(s[i][j] - mn) : 0.f;
-        Ps[(ty + 16 * i) * PS + tx + 16 * j] = pe;
-        ps += pe;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        ps += __shfl_xor_sync(0xffffffffu, ps, off);
-      l[i] = l[i] * alpha + ps;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha;
-      m[i] = mn;
-    }
-    // a row of Ps is written and read by the same half-warp
-    __syncwarp();
-
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[4], c[NJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Ps[(ty + 16 * i) * PS + kk];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) c[j] = Vs[kk * HD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(a[i], c[j], acc[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= p.Lq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      o[row * p.so.l + tx + 16 * j] = acc[i][j] / denom;
-  }
-}
-
-// ------------------------------------------------ bf16 tensor-core body
 using bf16 = __nv_bfloat16;
 
-template <int HD>
-constexpr size_t tc_smem_bytes() {
-  // Q tile, then two stages of K and V tiles; rows of HD + 8 elements
-  return sizeof(bf16) * static_cast<size_t>(HD + 8) * (kBQ + 4 * kBK);
+// ------------------------------------------------- shared by both bodies
+// row stride of the shared tiles in elements: hd plus 16 bytes
+template <typename T, int HD>
+__host__ __device__ constexpr int row_stride() {
+  return HD + 16 / static_cast<int>(sizeof(T));
+}
+
+// the Q tile, then two stages of K and V
+template <typename T, int HD>
+__host__ __device__ constexpr size_t smem_bytes() {
+  return sizeof(T) * static_cast<size_t>(row_stride<T, HD>()) *
+         (kBQ + 4 * kBK);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -255,14 +147,174 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// four 8 x 8 b16 matrices; lanes 8i .. 8i + 7 address the rows of matrix i
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+// four 8 x 8 b16 matrices (8 x 4 f32); lanes 8i .. 8i + 7 address the
+// rows of matrix i
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(p)) : "memory");
 }
 
+// rows [r0, r0 + 64) of a (rows, HD) matrix with row stride `ld` into a
+// [64][row_stride] tile: cp.async for rows < end, zeros past it
+template <typename T, int HD>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, long long ld,
+                                          int r0, int end, int tid) {
+  constexpr int E = 16 / sizeof(T);          // elements per 16-byte chunk
+  constexpr int CPR = HD / E;                // chunks per row
+#pragma unroll
+  for (int i = tid; i < kBK * CPR; i += kThreads) {
+    const int r = i / CPR, c = (i % CPR) * E;
+    T* d = dst + r * row_stride<T, HD>() + c;
+    if (r0 + r < end)
+      cp_async16(d, src + (r0 + r) * ld + c);
+    else
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// the block's (b, h) slices of q, k, v and out
+template <typename T>
+struct Heads {
+  const T* q; const T* k; const T* v; T* o;
+  __device__ Heads(const Params& p, int b, int h) {
+    const int kvh = h / p.rep;
+    q = static_cast<const T*>(p.q) + b * p.sq.b + h * p.sq.h;
+    k = static_cast<const T*>(p.k) + b * p.sk.b + kvh * p.sk.h;
+    v = static_cast<const T*>(p.v) + b * p.sv.b + kvh * p.sv.h;
+    o = static_cast<T*>(p.o) + b * p.so.b + h * p.so.h;
+  }
+};
+
+// K tiles the q tile at q0 visits: all, or under a causal mask without a
+// window those up to its last row's diagonal
+__device__ __forceinline__ int n_key_tiles(const Params& p, int q0) {
+  const int n_kt = (p.Lk + kBK - 1) / kBK;
+  if (!p.causal || p.window >= 0) return n_kt;
+  return min(n_kt, (min(q0 + kBQ, p.Lq) - 1) / kBK + 1);
+}
+
+// the ring's first fill: the Q tile and K/V tile 0 into stage 0
+template <typename T, int HD>
+__device__ __forceinline__ void load_first(T* Qs, T* Ks, T* Vs,
+                                           const Heads<T>& x, const Params& p,
+                                           int q0, int tid) {
+  load_tile<T, HD>(Qs, x.q, p.sq.l, q0, p.Lq, tid);
+  load_tile<T, HD>(Ks, x.k, p.sk.l, 0, p.Lk, tid);
+  load_tile<T, HD>(Vs, x.v, p.sv.l, 0, p.Lk, tid);
+  cp_async_commit();
+}
+
+// K/V tile kt + 1 into stage (kt + 1) & 1 (freed by the barrier that
+// ended tile kt - 1), then wait for tile kt (and, at kt 0, the Q tile);
+// returns tile kt's offset in Ks and Vs
+template <typename T, int HD>
+__device__ __forceinline__ int next_tile(T* Ks, T* Vs, const Heads<T>& x,
+                                         const Params& p, int kt, int n_kt,
+                                         int tid) {
+  constexpr int TILE = kBK * row_stride<T, HD>();
+  if (kt + 1 < n_kt) {
+    const int nxt = ((kt + 1) & 1) * TILE;
+    load_tile<T, HD>(Ks + nxt, x.k, p.sk.l, (kt + 1) * kBK, p.Lk, tid);
+    load_tile<T, HD>(Vs + nxt, x.v, p.sv.l, (kt + 1) * kBK, p.Lk, tid);
+    cp_async_commit();
+    cp_async_wait<1>();
+  } else {
+    cp_async_wait<0>();
+  }
+  __syncthreads();
+  return (kt & 1) * TILE;
+}
+
+// Online softmax over one 64-key tile. s[j][2r + e] is the raw score of
+// row w0 + g + 8r of the q tile at q0 (w0: the warp's first row) and key
+// k0 + 8j + 2t + e. Scales (soft-caps) and masks s in place into base-2
+// logits, then into the weights p; updates the row max m and sum l and
+// returns each row's rescale factor alpha for the accumulator. Each step
+// runs over all 32 values as straight-line code (a branch per value would
+// split the unrolled loop into blocks the scheduler cannot interleave);
+// the soft-cap and the masks branch once per tile. Masked logits are
+// -1e30 and keep their meaning in base 2 (exp2f(-1e30 - m) = 0, and a row
+// with no valid key still weighs its masked keys equally); keys >= Lk are
+// -inf, out of the row max (every tile holds a key < Lk, so the max stays
+// >= -1e30) and exp2f(-inf - m) = 0.
+__device__ __forceinline__ void softmax_tile(float (&s)[8][4], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2],
+                                             const Params& p, int q0, int w0,
+                                             int k0, int g, int t) {
+  if (p.cap > 0.f) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[j][e] = p.cap * tanhf(s[j][e] * p.scale / p.cap) * kLog2e;
+  } else {
+    const float scale2 = p.scale * kLog2e;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] *= scale2;
+  }
+  const int row0 = q0 + w0 + g;
+  if ((p.causal && k0 + kBK - 1 > q0 + w0) || p.window >= 0 ||
+      k0 + kBK > p.Lk) {                   // the same for the whole warp
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qpos = row0 + 8 * (e >> 1);
+        const int kpos = k0 + 8 * j + 2 * t + (e & 1);
+        const bool ok = (!p.causal || qpos >= kpos) &&
+                        (p.window < 0 || qpos - kpos < p.window);
+        s[j][e] = kpos >= p.Lk ? -INFINITY : ok ? s[j][e] : kMask;
+      }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mt = s[0][2 * r];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      mt = fmaxf(mt, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+    // a row's 64 keys lie on the 4 threads of one quad
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+    const float mn = fmaxf(m[r], mt);
+    alpha[r] = exp2f(m[r] - mn);
+    float ps = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[j][2 * r + e] = exp2f(s[j][2 * r + e] - mn);
+        ps += s[j][2 * r + e];
+      }
+    ps += __shfl_xor_sync(0xffffffffu, ps, 1);
+    ps += __shfl_xor_sync(0xffffffffu, ps, 2);
+    l[r] = l[r] * alpha[r] + ps;
+    m[r] = mn;
+  }
+}
+
+// acc[j][2r + e] (rows g + 8r) times its row's alpha
+template <int N>
+__device__ __forceinline__ void rescale(float (&acc)[N][4],
+                                        const float (&alpha)[2]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&a)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[j][e] = 0.f;
+}
+
+// ------------------------------------------------ bf16 tensor-core body
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
                                               const bf16* p) {
   asm volatile(
@@ -287,29 +339,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// rows [r0, r0 + 64) of a (rows, HD) bf16 matrix with row stride `ld`
-// into a [64][HD + 8] tile: cp.async for rows < end, zeros past it
 template <int HD>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long ld, int r0, int end,
-                                          int tid) {
-  constexpr int CPR = HD / 8;      // 16-byte chunks per row
-#pragma unroll
-  for (int i = tid; i < kBK * CPR; i += kTcThreads) {
-    const int r = i / CPR, c = (i % CPR) * 8;
-    bf16* d = dst + r * (HD + 8) + c;
-    if (r0 + r < end)
-      cp_async16(d, src + (r0 + r) * ld + c);
-    else
-      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kTcThreads)
-    flash_tc_kernel(const Params p) {
+__global__ void __launch_bounds__(kThreads) flash_tc_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int RS = HD + 8;       // padded row stride (elements)
+  constexpr int RS = row_stride<bf16, HD>();
   constexpr int KS = HD / 16;      // k16 steps of Q K^T
   constexpr int NO = HD / 8;       // n8 tiles of the output
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);   // [kBQ][RS]
@@ -319,56 +352,29 @@ __global__ void __launch_bounds__(kTcThreads)
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;   // fragment row, column pair
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
-  const int h = blockIdx.y, b = blockIdx.z, kvh = h / p.rep;
-  const bf16* q = static_cast<const bf16*>(p.q) + b * p.sq.b + h * p.sq.h;
-  const bf16* k = static_cast<const bf16*>(p.k) + b * p.sk.b + kvh * p.sk.h;
-  const bf16* v = static_cast<const bf16*>(p.v) + b * p.sv.b + kvh * p.sv.h;
-  bf16* o = static_cast<bf16*>(p.o) + b * p.so.b + h * p.so.h;
-
-  const int q_last = min(q0 + kBQ, p.Lq) - 1;
-  int n_kt = (p.Lk + kBK - 1) / kBK;
-  if (p.causal && p.window < 0) n_kt = min(n_kt, q_last / kBK + 1);
-
-  load_tile<HD>(Qs, q, p.sq.l, q0, p.Lq, tid);
-  load_tile<HD>(Ks, k, p.sk.l, 0, p.Lk, tid);
-  load_tile<HD>(Vs, v, p.sv.l, 0, p.Lk, tid);
-  cp_async_commit();
+  const Heads<bf16> x(p, blockIdx.z, blockIdx.y);
+  const int n_kt = n_key_tiles(p, q0);
+  load_first<bf16, HD>(Qs, Ks, Vs, x, p, q0, tid);
 
   // rows g and g + 8 of the warp's 16: running max, sum, accumulator
-  float m[2] = {kMask, kMask}, l[2] = {0.f, 0.f}, acc[NO][4];
-#pragma unroll
-  for (int j = 0; j < NO; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m[2] = {kMask, kMask}, l[2] = {0.f, 0.f}, alpha[2], acc[NO][4];
+  zero(acc);
   uint32_t qf[KS][4];
 
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int st = kt & 1;
-    if (kt + 1 < n_kt) {           // stage st ^ 1 was freed last iteration
-      const int nxt = (st ^ 1) * kBK * RS;
-      load_tile<HD>(Ks + nxt, k, p.sk.l, (kt + 1) * kBK, p.Lk, tid);
-      load_tile<HD>(Vs + nxt, v, p.sv.l, (kt + 1) * kBK, p.Lk, tid);
-      cp_async_commit();
-      cp_async_wait<1>();          // tile kt (and Q) has landed
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
+    const int off = next_tile<bf16, HD>(Ks, Vs, x, p, kt, n_kt, tid);
     if (kt == 0) {
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks)
         ldsm_x4(qf[ks], Qs + (warp * 16 + (lane & 15)) * RS + ks * 16 +
                             (lane >> 4) * 8);
     }
-    const bf16* Kt = Ks + st * kBK * RS;
-    const bf16* Vt = Vs + st * kBK * RS;
+    const bf16* Kt = Ks + off;
+    const bf16* Vt = Vs + off;
 
     // S = Q K^T: n8 tile j holds keys 8j .. 8j + 7 of the tile
     float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    zero(s);
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
 #pragma unroll
@@ -380,74 +386,8 @@ __global__ void __launch_bounds__(kTcThreads)
         mma_bf16(s[2 * np + 1], qf[ks], kb[2], kb[3]);
       }
     }
-
-    // online softmax; s[j][2r + e] is row g + 8r, key 8j + 2t + e. Each
-    // step runs over all 32 values as straight-line code (a branch per
-    // value would split the unrolled loop into blocks the scheduler
-    // cannot interleave); the soft-cap and the masks branch once per tile.
-    // Logits are kept in base 2 (times log2 e), so each weight is one
-    // exp2f; the -1e30 mask keeps its meaning (exp2f(-1e30 - m) = 0, and
-    // a row with no valid key still weighs its masked keys equally).
-    const int k0 = kt * kBK;
-    if (p.cap > 0.f) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[j][e] = p.cap * tanhf(s[j][e] * p.scale / p.cap) * kLog2e;
-    } else {
-      const float scale2 = p.scale * kLog2e;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] *= scale2;
-    }
-    // masked logits are -1e30; keys >= Lk are -inf, out of the row max
-    // (every tile holds a key < Lk, so the max stays >= -1e30) and
-    // exp(-inf - m) = 0
-    const int row0 = q0 + warp * 16 + g;
-    if ((p.causal && k0 + kBK - 1 > q0 + warp * 16) || p.window >= 0 ||
-        k0 + kBK > p.Lk) {                 // the same for the whole warp
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qpos = row0 + 8 * (e >> 1);
-          const int kpos = k0 + 8 * j + 2 * t + (e & 1);
-          const bool ok = (!p.causal || qpos >= kpos) &&
-                          (p.window < 0 || qpos - kpos < p.window);
-          s[j][e] = kpos >= p.Lk ? -INFINITY : ok ? s[j][e] : kMask;
-        }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mt = s[0][2 * r];
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        mt = fmaxf(mt, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
-      // a row's 64 keys lie on the 4 threads of one quad
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-      const float mn = fmaxf(m[r], mt);
-      const float alpha = exp2f(m[r] - mn);
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          s[j][2 * r + e] = exp2f(s[j][2 * r + e] - mn);
-          ps += s[j][2 * r + e];
-        }
-      ps += __shfl_xor_sync(0xffffffffu, ps, 1);
-      ps += __shfl_xor_sync(0xffffffffu, ps, 2);
-      l[r] = l[r] * alpha + ps;
-#pragma unroll
-      for (int j = 0; j < NO; ++j) {
-        acc[j][2 * r] *= alpha;
-        acc[j][2 * r + 1] *= alpha;
-      }
-      m[r] = mn;
-    }
+    softmax_tile(s, m, l, alpha, p, q0, warp * 16, kt * kBK, g, t);
+    rescale(acc, alpha);
 
     // O += P V: P's n8 tiles 2kk, 2kk + 1 are the A fragment of k16 step
     // kk, rounded to bf16
@@ -467,7 +407,7 @@ __global__ void __launch_bounds__(kTcThreads)
         mma_bf16(acc[2 * dp + 1], a, vb[2], vb[3]);
       }
     }
-    __syncthreads();               // stage st is read: free for tile kt + 2
+    __syncthreads();               // this stage is read: free for kt + 2
   }
 
 #pragma unroll
@@ -477,7 +417,7 @@ __global__ void __launch_bounds__(kTcThreads)
     // one reciprocal per row: within an f32 ulp of the division, far
     // below the bf16 output's rounding
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
-    bf16* orow = o + row * p.so.l + 2 * t;
+    bf16* orow = x.o + row * p.so.l + 2 * t;
 #pragma unroll
     for (int j = 0; j < NO; ++j)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
@@ -485,15 +425,150 @@ __global__ void __launch_bounds__(kTcThreads)
   }
 }
 
+// ------------------------------------------------------ f32 3xTF32 body
+// x to TF32, to nearest with ties away from zero: cvt.rna.tf32.f32 on
+// finite values, as two integer ops on the bits (as in ssd_scan.cu)
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = hi + lo + O(2^-22 |x|), hi and lo TF32
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+// d += a (16 x 8, row) * b (8 x 8, col); TF32 in, f32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 3xTF32 from split operands, lo.lo dropped: the hi.hi product into d,
+// the two small ones into dl
+__device__ __forceinline__ void mma3(float (&d)[4], float (&dl)[4],
+                                     const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint32_t bh0,
+                                     uint32_t bh1, uint32_t bl0,
+                                     uint32_t bl1) {
+  mma_tf32(dl, ah, bl0, bl1);
+  mma_tf32(dl, al, bh0, bh1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+    flash_tf32_kernel(const Params p) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int RS = row_stride<float, HD>();
+  constexpr int KS = HD / 8;       // k8 steps of Q K^T
+  constexpr int NO = HD / 8;       // n8 tiles of the output
+  float* Qs = smem;                // [kBQ][RS]
+  float* Ks = Qs + kBQ * RS;       // [2][kBK][RS]
+  float* Vs = Ks + 2 * kBK * RS;   // [2][kBK][RS]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;   // fragment row, column
+  const int w0 = warp * 16;                // the warp's rows
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const Heads<float> x(p, blockIdx.z, blockIdx.y);
+  const int n_kt = n_key_tiles(p, q0);
+  load_first<float, HD>(Qs, Ks, Vs, x, p, q0, tid);
+
+  // rows g and g + 8 of the warp's 16: running max, sum; the output's
+  // hi.hi terms and, apart, its small terms
+  float m[2] = {kMask, kMask}, l[2] = {0.f, 0.f}, alpha[2];
+  float acc[NO][4], acl[NO][4];
+  zero(acc);
+  zero(acl);
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int off = next_tile<float, HD>(Ks, Vs, x, p, kt, n_kt, tid);
+    const float* Kt = Ks + off;
+    const float* Vt = Vs + off;
+
+    // S = Q K^T: n8 tile j holds keys 8j .. 8j + 7 of the tile; the
+    // small terms in sl, added once the tile's sums are done
+    float s[8][4], sl[8][4];
+    zero(s);
+    zero(sl);
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      // A: rows w0 .. w0 + 15, dims 8ks .. 8ks + 7
+      uint32_t qa[4], ah[4], al[4];
+      ldsm_x4(qa, Qs + (w0 + (lane & 7) + ((lane >> 3) & 1) * 8) * RS +
+                      ks * 8 + (lane >> 4) * 4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split(__uint_as_float(qa[e]), ah[e], al[e]);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {   // key tiles 2np and 2np + 1
+        uint32_t kb[4], bh[4], bl[4];
+        ldsm_x4(kb, Kt + (np * 16 + (lane & 7) + (lane >> 4) * 8) * RS +
+                        ks * 8 + ((lane >> 3) & 1) * 4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          split(__uint_as_float(kb[e]), bh[e], bl[e]);
+        mma3(s[2 * np], sl[2 * np], ah, al, bh[0], bh[1], bl[0], bl[1]);
+        mma3(s[2 * np + 1], sl[2 * np + 1], ah, al, bh[2], bh[3], bl[2],
+             bl[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] += sl[j][e];
+    softmax_tile(s, m, l, alpha, p, q0, w0, kt * kBK, g, t);
+    rescale(acc, alpha);
+    rescale(acl, alpha);
+
+    // O += P V over k8 steps of 8 keys, taken in the order 2t (position
+    // t) and 2t + 1 (position t + 4): the A fragment is s[kk] as it lies
+    // in the registers, and V's fragment reads rows 2t and 2t + 1
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      uint32_t ph[4], pl[4];
+      split(s[kk][0], ph[0], pl[0]);       // row g,     key 2t
+      split(s[kk][2], ph[1], pl[1]);       // row g + 8, key 2t
+      split(s[kk][1], ph[2], pl[2]);       // row g,     key 2t + 1
+      split(s[kk][3], ph[3], pl[3]);       // row g + 8, key 2t + 1
+      const float* vr = Vt + (8 * kk + 2 * t) * RS + g;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {       // output dims 8n .. 8n + 7
+        uint32_t bh0, bl0, bh1, bl1;
+        split(vr[8 * n], bh0, bl0);
+        split(vr[RS + 8 * n], bh1, bl1);
+        mma3(acc[n], acl[n], ph, pl, bh0, bh1, bl0, bl1);
+      }
+    }
+    __syncthreads();               // this stage is read: free for kt + 2
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + w0 + g + 8 * r;
+    if (row >= p.Lq) continue;
+    const float denom = fmaxf(l[r], 1e-30f);
+    float* orow = x.o + row * p.so.l + 2 * t;
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+      *reinterpret_cast<float2*>(orow + 8 * j) =
+          make_float2((acc[j][2 * r] + acl[j][2 * r]) / denom,
+                      (acc[j][2 * r + 1] + acl[j][2 * r + 1]) / denom);
+  }
+}
+
 template <typename Kernel>
-int launch(Kernel kernel, size_t smem, int threads, const Params& p, int B,
-           int H, cudaStream_t stream) {
+int launch(Kernel kernel, size_t smem, const Params& p, int B, int H,
+           cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((p.Lq + kBQ - 1) / kBQ, H, B);
-  kernel<<<grid, threads, smem, stream>>>(p);
+  kernel<<<grid, kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -501,23 +576,31 @@ template <int HD>
 int launch_hd(int dtype, const Params& p, int B, int H, cudaStream_t s) {
   switch (dtype) {
     case kF32:
-      return launch(flash_kernel<HD>, smem_bytes<HD>(), kThreads, p, B, H,
+      return launch(flash_tf32_kernel<HD>, smem_bytes<float, HD>(), p, B, H,
                     s);
     case kBF16:
-      return launch(flash_tc_kernel<HD>, tc_smem_bytes<HD>(), kTcThreads, p,
-                    B, H, s);
+      return launch(flash_tc_kernel<HD>, smem_bytes<bf16, HD>(), p, B, H, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int HD>
+long long smem_hd(int dtype) {
+  switch (dtype) {
+    case kF32: return static_cast<long long>(smem_bytes<float, HD>());
+    case kBF16: return static_cast<long long>(smem_bytes<bf16, HD>());
+  }
+  return -1;
 }
 
 }  // namespace
 
 // C entry point (bound with ctypes). strides: 12 element strides, (b, h,
 // l) of q, k, v and out in that order; the last dimension of each must be
-// contiguous and every row 16-byte aligned (the wrapper checks). window
-// < 0: none; cap <= 0: none. Returns cudaGetLastError() after the
-// launch, or cudaErrorInvalidValue for arguments the kernel does not
-// take.
+// contiguous and every row 16-byte aligned (the wrapper checks). hd: 64,
+// 80, 96 or 128. window < 0: none; cap <= 0: none. Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for
+// arguments the kernel does not take.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o,
                                       const long long* strides, int B, int H,
@@ -538,6 +621,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 64: return launch_hd<64>(dtype, p, B, H, s);
+    case 80: return launch_hd<80>(dtype, p, B, H, s);
+    case 96: return launch_hd<96>(dtype, p, B, H, s);
     case 128: return launch_hd<128>(dtype, p, B, H, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -546,10 +631,11 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
 // Dynamic shared memory per block of the body that takes (hd, dtype), in
 // bytes; -1 for arguments the kernel does not take.
 extern "C" long long flash_attention_smem_bytes(int hd, int dtype) {
-  size_t bytes = 0;
-  if (dtype == kF32 && hd == 64) bytes = smem_bytes<64>();
-  if (dtype == kF32 && hd == 128) bytes = smem_bytes<128>();
-  if (dtype == kBF16 && hd == 64) bytes = tc_smem_bytes<64>();
-  if (dtype == kBF16 && hd == 128) bytes = tc_smem_bytes<128>();
-  return bytes ? static_cast<long long>(bytes) : -1;
+  switch (hd) {
+    case 64: return smem_hd<64>(dtype);
+    case 80: return smem_hd<80>(dtype);
+    case 96: return smem_hd<96>(dtype);
+    case 128: return smem_hd<128>(dtype);
+  }
+  return -1;
 }

@@ -2,13 +2,18 @@
 (CUDA C++, sm_90a, ``csrc/flash_attention.cu``).
 
 Replaces ``repro.kernels.flash_attention.flash_attention`` (TPU Pallas).
-Forward only, as the reference. bfloat16 inputs run on the tensor cores
-(P rounded to bfloat16 for P·V, within the bfloat16 tolerance 2e-2);
-float32 inputs keep f32 FMAs, for the float32 tolerance 2e-5. The source
-says what bounds each body and how its design follows. The wrapper runs
-the plain PyTorch version (``repro_torch.kernels.ref.flash_attention_plain``)
-for CPU tensors only; for a CUDA tensor it launches the kernel or
-raises, and counts the launch in ``flash_attention.launches``.
+Forward only, as the reference; head dims 64, 80, 96 and 128, every one
+the repo's configs send to the kernel. Both bodies run on the tensor
+cores (``mma.sync``): bfloat16 inputs with P rounded to bfloat16 for P·V
+(within the bfloat16 tolerance 2e-2); float32 inputs with every product
+split into three TF32 products (hi·hi + hi·lo + lo·hi, about 2^-21
+relative each, for the float32 tolerance 2e-5). At the path's f32 shape
+(4, 32, 512, 64) causal the f32 body's bound is 0.0261 ms of 3×TF32
+products (bytes: 0.0200 ms). The source says what bounds each body and
+how its design follows. The wrapper runs the plain PyTorch version
+(``repro_torch.kernels.ref.flash_attention_plain``) for CPU tensors only;
+for a CUDA tensor it launches the kernel or raises, and counts the
+launch in ``flash_attention.launches``.
 """
 from __future__ import annotations
 
@@ -21,7 +26,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import flash_attention_plain
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 80, 96, 128)
 
 
 def _bind(lib):
@@ -58,7 +63,7 @@ def flash_attention(q, k, v, *, causal=True, window=None, cap=None):
 
     The reference's ``block_q``/``block_k`` (its Pallas tiling) are not
     taken: the CUDA kernel always tiles 64 x 64. Takes float32 and
-    bfloat16, head_dim 64 or 128; raises on anything else."""
+    bfloat16, head_dim 64, 80, 96 or 128; raises on anything else."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      cap=cap)

@@ -16,6 +16,11 @@ row sum is taken over the float32 weights). That adds at most 2^-9
 relative per weight, below the bfloat16 output's own 2^-8 rounding, so
 the bfloat16 tolerance stays 2e-2; ``_kernel_bf16`` emulates that
 arithmetic tile by tile and is held against the reference on the CPU.
+Its float32 body takes every product as three TF32 products (each
+operand split into hi = tf32(x) and lo = tf32(x - hi), lo·lo dropped,
+about 2^-21 relative per product); ``_kernel_f32`` emulates that split
+with the TF32 rounding of tests/test_torch_mamba2.py and is held to the
+float32 tolerances at every head dim the kernel takes (64, 80, 96, 128).
 
 The tests marked ``gpu`` hold the CUDA kernel against the plain version
 on the card and skip without one."""
@@ -28,6 +33,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import flash_attention_plain
+from test_torch_mamba2 import _split_matmul, _tf32
 
 LOG2E = 1.4426950408889634
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -56,6 +62,8 @@ def _close(got, wants, tol):
     (2, 8, 2, 256, 64),       # GQA 4:1
     (1, 4, 1, 384, 128),      # MQA, non-pow2 length
     (1, 2, 2, 100, 64),       # unaligned length (padding path)
+    (1, 4, 2, 128, 80),       # gpt3_2_7b's head dim
+    (1, 2, 2, 100, 96),       # gpt3_0_7b's head dim, unaligned length
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_plain_matches_reference_sweep(B, H, KV, L, hd, dtype):
@@ -111,23 +119,24 @@ def test_windowed_rows_without_a_valid_key_are_finite():
                  jref.flash_attention_ref(jq, jk, jv, window=32)], 3e-5)
 
 
-def _kernel_bf16(q, k, v, *, causal=True, window=None, cap=None, tile=64):
-    """The bfloat16 body of the CUDA kernel, emulated: float32 scores of
-    the bfloat16 q, k (exact products), kept in base 2 (times log2 e), an
-    online softmax over 64-key tiles with float32 running max and sum, P
-    rounded to bfloat16 against the bfloat16 v with float32 accumulation,
-    out = acc / max(l, 1e-30) rounded to bfloat16."""
+def _online_softmax(q, k, v, scores, pv, *, causal, window, cap, tile=64):
+    """The CUDA kernel's loop, emulated: scores of each 64-key tile from
+    ``scores(q, k_tile)``, scaled (soft-capped) and kept in base 2 (times
+    log2 e), masked at -1e30, an online softmax with float32 running max
+    and sum, and the two terms ``pv(p, v_tile)`` returns (hi·hi and the
+    small terms, or the product and 0) added to two rescaled
+    accumulators; returns their sum / max(l, 1e-30) in float32."""
     B, H, Lq, hd = q.shape
     rep, Lk = H // k.shape[1], k.shape[2]
     qf = q.float()
     kf, vf = (t.repeat_interleave(rep, dim=1).float() for t in (k, v))
     m = torch.full((B, H, Lq, 1), -1e30)
     l = torch.zeros((B, H, Lq, 1))
-    acc = torch.zeros((B, H, Lq, hd))
+    acc = [torch.zeros((B, H, Lq, hd)), torch.zeros((B, H, Lq, hd))]
     qpos = torch.arange(Lq)[:, None]
     for k0 in range(0, Lk, tile):
         kpos = torch.arange(k0, min(k0 + tile, Lk))[None, :]
-        s = qf @ kf[:, :, k0:k0 + tile].transpose(-1, -2) / hd ** 0.5
+        s = scores(qf, kf[:, :, k0:k0 + tile]) / hd ** 0.5
         if cap is not None:
             s = cap * torch.tanh(s / cap)
         s = s * LOG2E
@@ -140,10 +149,38 @@ def _kernel_bf16(q, k, v, *, causal=True, window=None, cap=None, tile=64):
         mn = torch.maximum(m, s.amax(-1, keepdim=True))
         alpha, p = torch.exp2(m - mn), torch.exp2(s - mn)
         l = l * alpha + p.sum(-1, keepdim=True)
-        pb = p.to(torch.bfloat16).float()
-        acc = acc * alpha + pb @ vf[:, :, k0:k0 + tile]
+        acc = [a * alpha + term
+               for a, term in zip(acc, pv(p, vf[:, :, k0:k0 + tile]))]
         m = mn
-    return (acc / l.clamp_min(1e-30)).to(torch.bfloat16)
+    return (acc[0] + acc[1]) / l.clamp_min(1e-30)
+
+
+def _kernel_bf16(q, k, v, *, causal=True, window=None, cap=None):
+    """The bfloat16 body of the CUDA kernel, emulated: float32 scores of
+    the bfloat16 q, k (exact products), P rounded to bfloat16 against the
+    bfloat16 v with float32 accumulation, the output rounded to
+    bfloat16."""
+    return _online_softmax(
+        q, k, v, lambda a, b: a @ b.transpose(-1, -2),
+        lambda p, b: (p.to(torch.bfloat16).float() @ b, 0.0), causal=causal,
+        window=window, cap=cap).to(torch.bfloat16)
+
+
+def _kernel_f32(q, k, v, *, causal=True, window=None, cap=None):
+    """The float32 body of the CUDA kernel, emulated: Q Kᵀ and P V as
+    3×TF32 products (hi·hi + hi·lo + lo·hi of operands split with the
+    TF32 rounding cvt.rna, lo·lo dropped), the small terms summed apart:
+    in S per tile, in the output over all tiles. Its sums are IEEE
+    float32, so it bounds the split's error, not the tensor cores'
+    accumulation (the ``gpu`` tests hold that)."""
+    def pv(p, b):
+        ph, bh = _tf32(p), _tf32(b)
+        pl, bl = _tf32(p - ph), _tf32(b - bh)
+        return ph @ bh, ph @ bl + pl @ bh
+
+    return _online_softmax(
+        q, k, v, lambda a, b: _split_matmul(a, b.transpose(-1, -2), _tf32),
+        pv, causal=causal, window=window, cap=cap)
 
 
 @pytest.mark.parametrize("kwargs", [{}, {"window": 64, "cap": 30.0}])
@@ -163,6 +200,24 @@ def test_kernel_bf16_arithmetic_matches_reference(kwargs):
         atol=2e-2, rtol=2e-2)
 
 
+@pytest.mark.parametrize("hd,kwargs,tol", [
+    (64, {}, 2e-5), (80, {}, 2e-5), (96, {}, 2e-5), (128, {}, 2e-5),
+    (64, {"window": 64}, 3e-5), (64, {"cap": 50.0}, 3e-5),
+    (64, {"causal": False}, 3e-5), (64, {"window": 32, "cap": 30.0}, 3e-5),
+])
+def test_kernel_f32_arithmetic_matches_reference(hd, kwargs, tol):
+    """The float32 body's 3×TF32 arithmetic, emulated, within the float32
+    tolerances (2e-5; 3e-5 for the variants) of the Pallas kernel
+    (interpret mode) and the reference at (B, H, KV, L) = (1, 4, 2, 256),
+    and of the port's plain version."""
+    (jq, jk, jv), (q, k, v) = _qkv(1, 4, 2, 256, 256, hd, seed=17 + hd)
+    got = _kernel_f32(q, k, v, **kwargs)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    _close(got, [jops.flash_attention(jq, jk, jv, **kwargs),
+                 jref.flash_attention_ref(jq, jk, jv, **kwargs),
+                 flash_attention_plain(q, k, v, **kwargs)], tol)
+
+
 def test_strided_views_read_like_contiguous_tensors():
     """The model hands the kernel (B, L, H, hd) tensors swapped to
     (B, H, L, hd): strided views give the contiguous result."""
@@ -177,7 +232,7 @@ def test_strided_views_read_like_contiguous_tensors():
 
 @pytest.mark.parametrize("dtype,hd,kw,err", [
     (torch.float16, 64, {}, TypeError),
-    (torch.float32, 96, {}, ValueError),
+    (torch.float32, 72, {}, ValueError),
     (torch.float32, 64, {"window": 0}, ValueError),
     (torch.float32, 64, {"cap": 0.0}, ValueError),
 ])
@@ -213,6 +268,10 @@ def cuda():
     (1, 4, 2, 200, 200, 128, {}),                     # hd 128, Lq % 64
     (1, 4, 4, 200, 200, 128, {"window": 48, "cap": 30.0}),
     (2, 2, 2, 77, 300, 64, {"causal": False}),        # Lq, Lk % 64
+    (4, 32, 32, 512, 512, 80, {}),                    # gpt3_2_7b
+    (4, 16, 16, 512, 512, 96, {}),                    # gpt3_0_7b
+    (1, 4, 2, 200, 200, 80, {"window": 48, "cap": 30.0}),
+    (2, 2, 2, 77, 300, 96, {"causal": False}),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_on_card(cuda, B, H, KV, Lq, Lk, hd, kw, dtype):
