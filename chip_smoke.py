@@ -67,7 +67,19 @@ Phases, each of which exits non-zero on failure:
    each bit-equal to the state saved at that step; the embedding served
    from the store through the read cache, cold and warm; and the
    keyframe read as 4 ranks' owned spans, allgathered onto the card,
-   bit-equal to ``load``.
+   bit-equal to ``load``;
+10. the paper's own models (its Table 2) at their published widths:
+   ``gpt3_1_8b_moe`` cut to 4 of its 24 layers, trained 2 steps
+   through ``fastpersist-pipelined`` with one keyframe save, restored
+   bit-equal by a fresh Trainer and scored through flash_attention at
+   head dim 64 (each layer's attention output against the plain version,
+   the bf16 loss against the plain forward's, tokens per expert, dropped
+   and routed elsewhere per layer); ``gpt3_2_7b`` (head dim 80) and
+   ``gpt3_0_7b`` (96) at full depth from a seed, scored the same way in
+   bf16, ``gpt3_2_7b`` also in f32 (each layer at the f32 kernel
+   tolerance) and decoded in f32: a 4 x 512 prefill and 16 greedy steps,
+   each step's logits against the forward over the same tokens; B3's
+   launches counted around each kernel path, each part timed.
 
 The last three lines of standard output are one JSON object of
 per-kernel numbers, the card's name and power limit, and one JSON
@@ -1461,6 +1473,311 @@ def tiers(device, disk_peak: int) -> int:
         shutil.rmtree(peer_root, ignore_errors=True)
 
 
+# --------------------------------------------------------------- phase 10
+#: gpt3_1_8b_moe's depth in phase 10: 4 of its 24 layers (its widths are
+#: the published ones). All 24 are 4.98 B params, 69.8 GB of train state
+#: at 14 B/param: with gradients and activations more than one 80 GB
+#: card, and more than the disk holds beside phase 4's peak.
+MOE_LAYERS = 4
+#: the dense paper models phase 10 runs at full width and depth: B3 at
+#: head dims 80 and 96
+GPT3_DENSE = ("gpt3_2_7b", "gpt3_0_7b")
+
+
+def _score_paper(cfg, params, batch, dtype, times, routes=None):
+    """Phase 10's scoring of one model: each layer's attention output
+    through B3 against the plain version on the same q, k, v (bf16 at
+    2e-2, f32 at 2e-5; comparison launches, not counted), then the
+    ``use_kernels`` path with B3's launches counted around it: the bf16
+    loss (CE + aux) within 1e-3 relative of the plain forward's, or the
+    f32 logits within 1e-3 of the plain forward's. A warm call is timed
+    after the count is read. ``routes``: a dict that receives each MoE
+    layer's expert choice on the kernel forward ("kernel") and on the
+    plain one ("plain"), with the routed and dropped counts. Returns B3's
+    launches on the path."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_attention_plain
+    from repro_torch.models import layers as ly
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import build_model, cross_entropy
+
+    f32 = dtype == torch.float32
+    tol = TOL_ATTN_F32 if f32 else TOL_ATTN_BF16
+    kind = "f32" if f32 else "bf16"
+    layer_errs = []
+
+    def checked_hook(q, k, v, cap=None):
+        got = ops.flash_attention(q, k, v, causal=True, cap=cap)
+        want = flash_attention_plain(q, k, v, causal=True, cap=cap)
+        layer_errs.append(_close(
+            f"{kind} attention of layer {len(layer_errs)}", got, want, tol,
+            quiet=True))
+        return got
+
+    def plain_hook(q, k, v, cap=None):
+        return flash_attention_plain(q, k, v, causal=True, cap=cap)
+
+    def recorder(side):
+        def moe(p, h, c):
+            r = ly.moe_route(p, h, c)
+            counts = torch.bincount(r.gate_i.reshape(-1),
+                                    minlength=c.moe.n_experts)
+            routes.setdefault(side, []).append(
+                (r.gate_i, counts.tolist(),
+                 int((counts - r.C).clamp(min=0).sum()), r.C))
+            return ly.moe_apply(p, h, c)
+        return moe if routes is not None else None
+
+    def plain_forward():
+        return transformer.forward(params, cfg, batch, dtype=dtype,
+                                   attn_kernel=plain_hook,
+                                   moe_kernel=recorder("plain"))
+
+    model = build_model(cfg, dtype=dtype, use_kernels=True)
+    with torch.inference_mode():
+        transformer.forward(params, cfg, batch, dtype=dtype,
+                            attn_kernel=checked_hook,
+                            moe_kernel=recorder("kernel"))
+        if len(layer_errs) != cfg.n_layers:
+            fail(f"{cfg.name}: the checked {kind} forward ran attention "
+                 f"{len(layer_errs)} times; expected {cfg.n_layers}")
+        print(f"  ok {kind} attention output of each of the {cfg.n_layers} "
+              f"layers through B3 vs the plain version: tol {tol} (rtol "
+              f"{tol}), max_abs_err {max(layer_errs)}", flush=True)
+        torch.cuda.synchronize()
+        _zero_counts()         # just before this model's kernel path
+        t0 = time.perf_counter()
+        if f32:
+            out, _ = model.forward(params, batch)
+        else:
+            out = model.loss(params, batch)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        launches = ops.flash_attention.launches
+        if launches != cfg.n_layers:
+            fail(f"{cfg.name}: the {kind} kernel path launched "
+                 f"flash_attention {launches} times; expected "
+                 f"{cfg.n_layers}")
+        plain_logits, aux = plain_forward()
+        if f32:
+            _close(f"{cfg.name} f32 logits {tuple(out.shape)} vs the plain "
+                   f"forward", out, plain_logits, TOL_MODEL, rtol=0.0)
+            what = "f32 forward"
+        else:
+            loss = float(out)
+            plain = float(cross_entropy(plain_logits, batch["labels"]) + aux)
+            print(f"  bf16 loss (CE + aux) {loss:.6f}, plain forward "
+                  f"{plain:.6f}", flush=True)
+            if not (math.isfinite(loss) and abs(loss - plain)
+                    <= TOL_LOSS_BF16 * abs(plain)):
+                fail(f"{cfg.name}: bf16 loss {loss} vs plain {plain} beyond "
+                     f"{TOL_LOSS_BF16} relative")
+            what = "bf16 loss"
+        del out, plain_logits
+        t0 = time.perf_counter()
+        if f32:
+            model.forward(params, batch)
+        else:
+            model.loss(params, batch)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+    print(f"  {cfg.name} {what} on {tuple(batch['tokens'].shape)}: first "
+          f"call {first:.4f} s, warm call {warm:.4f} s; {launches} B3 "
+          f"launches", flush=True)
+    times[f"{cfg.name} {what} first/warm s"] = (first, warm)
+    return launches
+
+
+def _moe_routes(cfg, routes):
+    """Print each MoE layer's tokens per expert and tokens dropped (on the
+    kernel forward), and the tokens routed to another expert on the plain
+    forward (bf16 roundings of the attention can flip a near tie)."""
+    flips = []
+    for i, ((gi, counts, dropped, cap), (gp, *_)) in enumerate(
+            zip(routes["kernel"], routes["plain"])):
+        flips.append(int((gi != gp).any(-1).sum()))
+        print(f"  layer {i}: tokens per expert {counts} (capacity {cap}), "
+              f"dropped {dropped}, routed elsewhere on the plain forward "
+              f"{flips[-1]}", flush=True)
+    if len(flips) != cfg.n_layers:
+        fail(f"{cfg.name}: routing recorded in {len(flips)} layers")
+    return flips
+
+
+def paper_models(device, disk_peak: int, times: dict) -> int:
+    """Phase 10: the paper's own models (its Table 2) at their published
+    widths on the card. (a) gpt3_1_8b_moe, cut to ``MOE_LAYERS`` layers:
+    trained 2 steps through ``fastpersist-pipelined`` with one keyframe
+    save, restored by a fresh Trainer bit-equal to the live state and
+    data position, and the restored state scored through B3 (hd 64).
+    (b) gpt3_2_7b (hd 80) and gpt3_0_7b (hd 96) at full depth from seed
+    0: the bf16 kernel loss, gpt3_2_7b's f32 forward, and gpt3_2_7b's f32
+    prefill of 4 x 512 tokens with 16 greedy decode steps, each step's
+    logits against the forward over the same tokens. Keeps its disk peak
+    under 90 % of phase 4's. Returns B3's launches on the phase's kernel
+    paths; ``times`` receives each part's seconds."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.configs import get_paper_config
+    from repro_torch.core.checkpointer import FastPersistConfig
+    from repro_torch.core.partition import Topology
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.trainer import (CheckpointPolicy, Trainer,
+                                           TrainerConfig)
+    from repro_torch.tree import flatten, tree_map
+
+    full = get_paper_config("gpt3_1_8b_moe")
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    state_bytes = cfg.param_count() * 14
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_paper_")
+    launches = 0
+    try:
+        free = shutil.disk_usage(tmp).free
+        budget = min(0.75 * free, 0.9 * disk_peak)
+        print(f"phase 10: the paper's models at their published widths; "
+              f"{free} B free on the disk (phase 4 held {disk_peak} B)",
+              flush=True)
+        print(f"  CUT: {full.name} n_layers {full.n_layers} -> {MOE_LAYERS}"
+              f" (widths unchanged: d_model {cfg.d_model}, {cfg.n_heads} "
+              f"heads of {cfg.resolved_head_dim}, {cfg.moe.n_experts} "
+              f"experts of d_ff {cfg.d_ff}, top-{cfg.moe.top_k}, capacity "
+              f"{cfg.moe.capacity_factor}, vocab {cfg.vocab_size}): "
+              f"{cfg.param_count()} params, {state_bytes} B of train state;"
+              f" all {full.n_layers} layers are {full.param_count()} params,"
+              f" {full.param_count() * 14} B, more than one card with "
+              f"gradients and activations", flush=True)
+        if state_bytes > budget:
+            fail(f"the {MOE_LAYERS}-layer keyframe ({state_bytes} B) does "
+                 f"not fit min(75 % of the free disk, 90 % of phase 4's "
+                 f"peak) = {budget:.0f} B")
+        pol = CheckpointPolicy(
+            directory=tmp, every=2, backend="fastpersist-pipelined",
+            restore_readers="auto", fp=FastPersistConfig(
+                topology=Topology(dp_degree=4, ranks_per_node=4)))
+        tcfg = TrainerConfig(model=cfg, steps=STEPS, global_batch=BATCH,
+                             seq_len=SEQ, checkpoint=pol, log_every=100)
+        tr = Trainer(tcfg, device=device)
+        tr.init_state()
+        t0 = time.perf_counter()
+        _, metrics = tr.run()
+        wall = time.perf_counter() - t0
+        st = tr.saves[0].result()
+        loss = float(metrics["loss"])
+        print(f"  trained {cfg.name} ({MOE_LAYERS} layers) {STEPS} steps of "
+              f"{BATCH} x {SEQ} in {wall:.2f} s (iterations "
+              f"{[round(t, 3) for t in tr.iter_times]} s), loss {loss:.4f};"
+              f" keyframe step {st.step}: {st.total_bytes} B, snapshot "
+              f"{st.snapshot_seconds:.3f} s, persist {st.seconds:.3f} s, "
+              f"commit {st.commit_seconds:.3f} s", flush=True)
+        times["moe train 2 steps s"] = wall
+        times["moe keyframe persist + commit s"] = (st.seconds
+                                                    + st.commit_seconds)
+        if len(tr.saves) != 1 or st.delta is not None \
+                or not math.isfinite(loss):
+            fail(f"{cfg.name}: {len(tr.saves)} saves, loss {loss}")
+        live, position = tr.state, tr.data.position
+        tr.engine.close()
+        del tr, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        tr2 = Trainer(tcfg, device=device)
+        step = tr2.restore()
+        torch.cuda.synchronize()
+        times["moe restore s"] = time.perf_counter() - t0
+        if step != STEPS or tr2.data.position != position:
+            fail(f"{cfg.name} restore gave step {step} at data position "
+                 f"{tr2.data.position}; expected {STEPS} at {position}")
+        _same_state(f"{cfg.name} restore", flatten(tr2.state),
+                    flatten(live))
+        print(f"  restored step {step} in {times['moe restore s']:.2f} s; "
+              f"all {len(flatten(live))} records bit-equal to the live "
+              f"state, data position {position}", flush=True)
+        tr2.engine.close()
+        del live
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        batch = tr2.data.peek(tr2.data.position)
+        routes = {}
+        launches += _score_paper(cfg, tr2.state.params, batch,
+                                 torch.bfloat16, times, routes)
+        flips = _moe_routes(cfg, routes)
+        print(f"  tokens routed to another expert by the plain forward: "
+              f"{sum(flips)} of {cfg.n_layers} x {BATCH * SEQ}", flush=True)
+        del tr2, routes
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) the dense models at full width and depth, from seed 0
+        for key in GPT3_DENSE:
+            cfg = get_paper_config(key)
+            params = build_model(cfg).init(0, device)
+            print(f"  {cfg.name}: {cfg.n_layers} layers, d_model "
+                  f"{cfg.d_model}, {cfg.n_heads} heads of "
+                  f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}; "
+                  f"{sum(t.numel() for _, t in flatten(params))} f32 params"
+                  f" from seed 0", flush=True)
+            bf = tree_map(lambda t: t.to(torch.bfloat16), params)
+            launches += _score_paper(cfg, bf, batch, torch.bfloat16, times)
+            del bf
+            if key == "gpt3_2_7b":
+                launches += _score_paper(cfg, params, batch, torch.float32,
+                                         times)
+                _decode_paper(cfg, params, batch, device, times)
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _decode_paper(cfg, params, batch, device, times):
+    """gpt3_2_7b in f32: prefill the batch's tokens, then ``M_NEW`` greedy
+    decode steps; the prefill's and each step's logits against the plain
+    forward over the prompt and the tokens generated so far, at
+    TOL_DECODE (as phase 8)."""
+    import torch
+    from repro_torch.models.registry import build_model
+
+    plain = build_model(cfg, dtype=torch.float32)
+    prompt = batch["tokens"]
+    B, P = prompt.shape
+    with torch.inference_mode():
+        cache = plain.init_cache(B, P + M_NEW, device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, cache = plain.prefill(params, {"tokens": prompt}, cache)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        tok = last[:, -1:].argmax(dim=-1).to(torch.int32)
+        toks, dec = [tok], []
+        t0 = time.perf_counter()
+        for i in range(M_NEW):
+            lg, cache = plain.decode(params, tok, cache, P + i)
+            dec.append(lg[:, 0])
+            tok = lg[:, -1:].argmax(dim=-1).to(torch.int32)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        t_decode = time.perf_counter() - t0
+        del cache
+        full, _ = plain.forward(params, {"tokens": torch.cat(
+            [prompt] + toks[:M_NEW], dim=1)})
+        print(f"  {cfg.name} f32 prefill {B} x {P}: {t_prefill:.4f} s; "
+              f"{M_NEW} greedy decode steps {t_decode:.4f} s "
+              f"({t_decode / M_NEW * 1e3:.2f} ms per token step of {B} "
+              f"sequences)", flush=True)
+        _close(f"{cfg.name} prefill logits vs forward", last[:, 0],
+               full[:, P - 1], TOL_DECODE, rtol=0.0)
+        _close(f"{cfg.name} {M_NEW} decode steps' logits vs forward",
+               torch.stack(dec, dim=1), full[:, P:], TOL_DECODE, rtol=0.0)
+    times[f"{cfg.name} f32 prefill s"] = t_prefill
+    times[f"{cfg.name} f32 decode s per token step"] = t_decode / M_NEW
+
+
 def sass_check():
     """Phase 2: the instructions of each flash_attention body in the SASS
     that ``cuobjdump`` reads from the built library. Fails unless every
@@ -1563,6 +1880,10 @@ def main():
     launches["ssd_intra_chunk"] = run_mamba2(device, ms["ssd_intra_chunk"])
     torch.cuda.empty_cache()
     tiers(device, disk_peak)
+    torch.cuda.empty_cache()
+    times = {}
+    launches["flash_attention"] += paper_models(device, disk_peak, times)
+    print(f"phase 10 times: {json.dumps(times)}", flush=True)
     for e in entries:
         e["launches"] = launches[e["name"]]
     print(f"every phase passed in {time.perf_counter() - t_start:.1f} s",

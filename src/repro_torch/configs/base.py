@@ -2,8 +2,9 @@
 ``repro.configs.base`` kept inside the port so it imports nothing of the
 JAX package.
 
-Each ported architecture has one module in this package defining
-``CONFIG`` (published hyper-parameters, source cited); ``reduced()``
+Each architecture of ``ARCH_IDS`` has one module in this package defining
+``CONFIG`` (published hyper-parameters, source cited), and
+``gpt3_family`` holds the paper's own models; ``reduced()``
 produces the small CPU-test variant of the same family (≤2 layers,
 d_model ≤ 256, small vocab).
 """
@@ -186,10 +187,40 @@ class ModelConfig:
         return self.param_count() * bytes_per_param
 
 
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str          # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k":    ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k":   ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+ARCH_IDS = [
+    "internvl2_26b", "gemma2_9b", "arctic_480b", "minicpm3_4b",
+    "stablelm_1_6b", "qwen3_moe_235b", "whisper_small", "qwen1_5_4b",
+    "mamba2_370m", "zamba2_2_7b",
+]
+
+# paper's own models (GPT-3 family, Table 2)
+PAPER_ARCH_IDS = ["gpt3_0_7b", "gpt3_1_3b", "gpt3_2_7b", "gpt3_6_7b",
+                  "gpt3_13b", "gpt3_1_8b_moe"]
+
+
 def get_config(arch: str) -> ModelConfig:
     arch = arch.replace("-", "_").replace(".", "_")
     mod = importlib.import_module(f"repro_torch.configs.{arch}")
     return mod.CONFIG
+
+
+def all_configs() -> dict:
+    return {a: get_config(a) for a in ARCH_IDS}
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:

@@ -9,9 +9,9 @@ plus ``--device`` and ``--reduced``).
 
 Weights are random, from seed 0; the prompt holds the token ids the
 example's ``make_batch`` draws. Runs on the CUDA card unless
-``--device cpu`` is given; asking for cuda without a card raises. Only
-the ssm family has a decode path in the port (others raise
-NotImplementedError, ROADMAP.md queue A item 6).
+``--device cpu`` is given; asking for cuda without a card raises. Serves
+the dense, moe and ssm families; ``--arch`` also takes the paper's own
+models (``gpt3_0_7b`` … ``gpt3_13b``, ``gpt3_1_8b_moe``).
 """
 from __future__ import annotations
 
@@ -19,7 +19,8 @@ import argparse
 
 import torch
 
-from repro_torch.configs import get_config, reduced as make_reduced
+from repro_torch.configs import (PAPER_ARCH_IDS, get_config,
+                                 get_paper_config, reduced as make_reduced)
 from repro_torch.data.pipeline import prng_key, randint, split
 from repro_torch.models.registry import build_model
 from repro_torch.train.steps import make_decode_step
@@ -38,7 +39,8 @@ def main(argv=None):
     ap.add_argument("--new-tokens", type=int, default=16)
     args = ap.parse_args(argv)
 
-    cfg = get_config(args.arch)
+    cfg = (get_paper_config(args.arch) if args.arch in PAPER_ARCH_IDS
+           else get_config(args.arch))
     if args.reduced:
         cfg = make_reduced(cfg)
     device = resolve_device(args.device)

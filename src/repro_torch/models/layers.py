@@ -1,5 +1,5 @@
-"""Shared model building blocks (dense parts), plain functions on
-tensors — the counterpart of ``repro.models.layers``.
+"""Shared model building blocks (dense, MoE and Mamba2 parts), plain
+functions on tensors — the counterpart of ``repro.models.layers``.
 
 Parameters are nested dicts of tensors in the reference's layout:
 per-layer parameters STACKED on a leading ``(n_layers, ...)`` axis, and
@@ -10,7 +10,7 @@ cast to the activations' dtype at use, as in the reference.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -73,12 +73,15 @@ def softcap(x, cap):
 
 
 def attention(q, k, v, *, q_pos, kv_pos, causal=True,
-              window: Optional[int] = None, cap: Optional[float] = None):
+              window: Optional[int] = None, cap: Optional[float] = None,
+              kv_valid_len=None):
     """GQA attention in plain torch (not SDPA), as ``ly.attention``.
 
     q: (B, Lq, H, hd); k,v: (B, Lk, KV, hd); ``q_pos``/``kv_pos`` are
-    position vectors for the causal and sliding-window masks. Masked
-    logits take MASK_VALUE (−1e30), not −inf, as in the reference."""
+    position vectors for the causal and sliding-window masks;
+    ``kv_valid_len`` masks the cache slots at or beyond it (decode).
+    Masked logits take MASK_VALUE (−1e30), not −inf, as in the
+    reference."""
     B, Lq, H, hd = q.shape
     KV = k.shape[2]
     rep = H // KV
@@ -91,6 +94,8 @@ def attention(q, k, v, *, q_pos, kv_pos, causal=True,
         mask &= q_pos[:, None] >= kv_pos[None, :]
     if window is not None:
         mask &= q_pos[:, None] - kv_pos[None, :] < window
+    if kv_valid_len is not None:
+        mask &= (kv_pos < kv_valid_len)[None, :]
     scores = torch.where(mask, scores, MASK_VALUE)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bghqk,bkgd->bqghd", probs, v)
@@ -154,6 +159,160 @@ def mlp(p, x, gated=True, act=gelu):
     else:
         h = act(h)
     return h @ p["wo"].to(x.dtype)
+
+
+# ------------------------------------------------------------------- MoE
+
+def moe_init(cfg, generator, device, lead=()):
+    e, d, ff = cfg.moe.n_experts, cfg.d_model, cfg.d_ff
+    p = {
+        "router": dense_init(d, e, generator, device, lead),
+        "wi": uniform_scale((*lead, e, d, ff), d, generator, device),
+        "wg": uniform_scale((*lead, e, d, ff), d, generator, device),
+        "wo": uniform_scale((*lead, e, ff, d), ff, generator, device),
+    }
+    if cfg.moe.dense_residual:
+        p["dense"] = mlp_init(d, cfg.moe.dense_ff or cfg.d_ff, generator,
+                              device, lead=lead)
+    return p
+
+
+class Routing(NamedTuple):
+    """The router's decision for ``G`` groups of ``T`` tokens each."""
+    G: int
+    T: int
+    C: int               # expert capacity per group
+    probs: torch.Tensor  # (G, T, E) f32 softmax
+    gate_v: torch.Tensor  # (G, T, K) f32, renormalised over the top k
+    gate_i: torch.Tensor  # (G, T, K) int64 expert index, best first
+
+
+def moe_route(p, x, cfg, *, n_groups=1, capacity_factor=None) -> Routing:
+    """Group the tokens, route them in f32 and size the capacity exactly as
+    the reference does (layers.py:309-322). The top k is taken from a
+    STABLE descending sort, so that ties go to the lower expert index as
+    ``lax.top_k`` sends them (``torch.topk`` promises no order on ties);
+    the gate values are gathered from ``probs`` and stay differentiable."""
+    B, L, _ = x.shape
+    E, K = cfg.moe.n_experts, cfg.moe.top_k
+    if capacity_factor is None:
+        capacity_factor = cfg.moe.capacity_factor
+    G = min(n_groups, B) if B * L % min(n_groups, B * L) == 0 else 1
+    G = max(G, 1)
+    T = (B * L) // G
+    C = max(int(T * K / E * capacity_factor), 1)
+    logits = x.reshape(G, T, -1).float() @ p["router"].float()   # (G,T,E)
+    probs = torch.softmax(logits, dim=-1)
+    gate_i = torch.sort(probs.detach(), dim=-1, descending=True,
+                        stable=True).indices[..., :K]
+    gate_v = probs.gather(-1, gate_i)
+    gate_v = gate_v / gate_v.sum(-1, keepdim=True).clamp(min=1e-9)
+    return Routing(G, T, C, probs, gate_v, gate_i)
+
+
+def _moe_aux(cfg, r: Routing, onehot):
+    """Switch-style load-balance loss: E · Σ_e (mean prob) · (fraction
+    routed)."""
+    me = r.probs.mean(dim=(0, 1))                          # (E,)
+    ce = onehot.sum(2).mean(dim=(0, 1))
+    return cfg.moe.aux_loss_coef * cfg.moe.n_experts * torch.sum(me * ce)
+
+
+def _expert_ffn(p, ex_in, lead: str):
+    """SwiGLU of every expert on its (…, C, D) slots; ``lead`` names the
+    einsum axes before the expert's."""
+    dt = ex_in.dtype
+    h = torch.einsum(f"{lead}ecd,edf->{lead}ecf", ex_in, p["wi"].to(dt))
+    g = torch.einsum(f"{lead}ecd,edf->{lead}ecf", ex_in, p["wg"].to(dt))
+    return torch.einsum(f"{lead}ecf,efd->{lead}ecd", F.silu(g) * h,
+                        p["wo"].to(dt))
+
+
+def moe_apply(p, x, cfg, *, n_groups=1, capacity_factor=None,
+              impl="einsum"):
+    """Mixture-of-experts layer, the reference's ``moe_apply``. Returns
+    (out, aux_loss).
+
+    impl="einsum": GShard capacity dispatch through one-hot einsums; a
+    (token, k) past its expert's capacity, in arrival order, is dropped.
+    impl="sorted": tokens routed by a stable sort and gather/scatter
+    (``moe_apply_sorted``); the same output when capacity is ample, and
+    drops by token index within an expert when it is not."""
+    if impl == "sorted":
+        return moe_apply_sorted(p, x, cfg, n_groups=n_groups,
+                                capacity_factor=capacity_factor)
+    B, L, D = x.shape
+    E = cfg.moe.n_experts
+    r = moe_route(p, x, cfg, n_groups=n_groups,
+                  capacity_factor=capacity_factor)
+    G, T, C = r.G, r.T, r.C
+    xt = x.reshape(G, T, D)
+    K = r.gate_i.shape[-1]
+    onehot = F.one_hot(r.gate_i, E).float()                # (G,T,K,E)
+    # position of each (token, k) inside its expert's capacity buffer
+    pos = (torch.cumsum(onehot.reshape(G, T * K, E), dim=1)
+           .reshape(G, T, K, E) - 1.0)
+    keep = (pos < C) & (onehot > 0)
+    pos = pos.clamp(0, C - 1).long()
+    # (G,T,K,E,C) 0/1 slots in the compute dtype (exact), as the reference
+    slot = F.one_hot(pos, C).to(x.dtype) * keep[..., None].to(x.dtype)
+    dispatch = slot.sum(2)                                 # (G,T,E,C)
+    # the reference's preferred_element_type=f32: products of compute-
+    # dtype values, summed over k in f32
+    combine = torch.einsum("gtke,gtkec->gtec",
+                           (r.gate_v[..., None] * onehot).to(x.dtype).float(),
+                           slot.float())
+    ex_in = torch.einsum("gtec,gtd->gecd", dispatch, xt)
+    ex_out = _expert_ffn(p, ex_in, "g")
+    out = torch.einsum("gtec,gecd->gtd", combine.to(x.dtype), ex_out)
+    out = out.reshape(B, L, D)
+    aux = _moe_aux(cfg, r, onehot)
+    if cfg.moe.dense_residual:
+        out = out + mlp(p["dense"], x, gated=cfg.gated_mlp, act=F.silu)
+    return out, aux
+
+
+def moe_apply_sorted(p, x, cfg, *, n_groups=1, capacity_factor=None):
+    """Sort-based MoE dispatch (see ``moe_apply``): per group, the (token,
+    k) pairs sorted stably by expert; a pair at position ≥ C in its expert
+    is dropped. The reference's ``.at[dest].set(mode="drop")`` is a write
+    into a buffer with one spare slot, cut off after."""
+    B, L, D = x.shape
+    E = cfg.moe.n_experts
+    r = moe_route(p, x, cfg, n_groups=n_groups,
+                  capacity_factor=capacity_factor)
+    G, T, C = r.G, r.T, r.C
+    K = r.gate_i.shape[-1]
+    xt = x.reshape(G, T, D)
+    dev = x.device
+    TK, EC = T * K, E * C
+    outs = []
+    for g in range(G):
+        flat_e = r.gate_i[g].reshape(TK)
+        order = torch.argsort(flat_e, stable=True)          # by expert
+        sorted_e = flat_e[order]
+        counts = torch.bincount(flat_e, minlength=E)
+        starts = torch.cumsum(counts, 0) - counts           # (E,)
+        pos_in_e = torch.arange(TK, device=dev) - starts[sorted_e]
+        keep = pos_in_e < C
+        slot = sorted_e * C + pos_in_e.clamp(0, C - 1)
+        dest = torch.where(keep, slot, EC)                 # EC: dropped
+        src_tok = torch.full((EC + 1,), T, dtype=torch.long, device=dev)
+        src_tok[dest] = order // K
+        xg_pad = torch.cat([xt[g], xt.new_zeros(1, D)])
+        ex_in = xg_pad[src_tok[:EC]].reshape(E, C, D)
+        ex_out = _expert_ffn(p, ex_in, "")
+        slot_tk = torch.full((TK,), EC, dtype=torch.long, device=dev)
+        slot_tk[order] = dest
+        out_pad = torch.cat([ex_out.reshape(EC, D), ex_out.new_zeros(1, D)])
+        picked = out_pad[slot_tk].reshape(T, K, D)
+        outs.append(torch.einsum("tk,tkd->td", r.gate_v[g].to(x.dtype),
+                                 picked))
+    out = torch.stack(outs).reshape(B, L, D)
+    aux = _moe_aux(cfg, r, F.one_hot(r.gate_i, E).float())
+    if cfg.moe.dense_residual:
+        out = out + mlp(p["dense"], x, gated=cfg.gated_mlp, act=F.silu)
+    return out, aux
 
 
 def layer_slice(tree, i):

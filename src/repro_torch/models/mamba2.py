@@ -46,8 +46,10 @@ def _logits(params, cfg, x):
     return x @ params["embed"].T.to(x.dtype)
 
 
-def forward(params, cfg, batch, *, dtype=torch.bfloat16, ssd_kernel=None):
-    """Teacher-forced full-sequence forward. Returns (logits, aux_loss)."""
+def forward(params, cfg, batch, *, dtype=torch.bfloat16, moe_groups=1,
+            ssd_kernel=None):
+    """Teacher-forced full-sequence forward. Returns (logits, aux_loss).
+    ``moe_groups`` is unused, as in the reference."""
     x = params["embed"].to(dtype)[batch["tokens"]]
     x, _ = _layers(params, cfg, x, None, ssd_kernel)
     return _logits(params, cfg, x), torch.zeros((), dtype=torch.float32,
@@ -69,7 +71,8 @@ def init_cache(cfg, batch_size: int, cache_len: int, dtype=torch.bfloat16,
     }
 
 
-def prefill(params, cfg, batch, cache, *, dtype=torch.bfloat16):
+def prefill(params, cfg, batch, cache, *, dtype=torch.bfloat16,
+            moe_groups=1):
     """Run the prompt; returns (last-token logits (B, 1, V), the cache).
     Like the reference, the given cache is only a shape: the prompt's
     states replace it."""
@@ -78,7 +81,8 @@ def prefill(params, cfg, batch, cache, *, dtype=torch.bfloat16):
     return _logits(params, cfg, x[:, -1:]), new_cache
 
 
-def decode_step(params, cfg, tokens, cache, pos, *, dtype=torch.bfloat16):
+def decode_step(params, cfg, tokens, cache, pos, *, dtype=torch.bfloat16,
+                moe_groups=1):
     """One token per sequence against the cache. tokens (B, 1); ``pos``
     is unused (the SSM state carries the position)."""
     x = params["embed"].to(dtype)[tokens]

@@ -1,4 +1,4 @@
-"""Uniform model interface (the dense and ssm families of
+"""Uniform model interface (the dense, moe and ssm families of
 ``repro.models.registry``).
 
 ``build_model(cfg)`` returns a ``Model`` of plain functions:
@@ -11,7 +11,8 @@
   prefill(params, batch, cache)     -> (last-token logits, cache)
   decode(params, tokens, cache, pos) -> (logits, cache)
 
-Prefill and decode are ported for the ssm family only.
+The dense and moe families write into the given KV cache in place and
+return it; the ssm family returns a new cache.
 """
 from __future__ import annotations
 
@@ -22,20 +23,32 @@ import torch
 
 from repro_torch.models import mamba2, transformer
 
-_FAMILIES = {"dense": transformer, "ssm": mamba2}
-#: families whose prefill/decode path is ported
-_DECODE = ("ssm",)
+_FAMILIES = {"dense": transformer, "moe": transformer, "ssm": mamba2}
+#: families still to port, with their ROADMAP.md queue A item
+_NOT_PORTED = {"hybrid": "6d", "vlm": "6g", "encdec": "6h"}
 
 
-def cross_entropy(logits, labels, n_prefix=0):
+def cross_entropy(logits, labels, n_prefix=0, chunk=None):
     """Mean CE over the label positions. logits (B, P+L, V), labels
-    (B, L)."""
+    (B, L).
+
+    ``chunk``: take the log-softmax over sequence chunks, one at a time,
+    to bound the f32 logits alive at once; their mean is the full
+    mean."""
     if n_prefix:
         logits = logits[:, n_prefix:]
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    return (lse - gold).mean()
+    L = logits.shape[1]
+
+    def ce(lg, lb):
+        lg = lg.float()
+        lse = torch.logsumexp(lg, dim=-1)
+        gold = torch.gather(lg, -1, lb[..., None].long())[..., 0]
+        return lse - gold
+
+    if chunk and L % chunk == 0 and L > chunk:
+        return torch.cat([ce(logits[:, i:i + chunk], labels[:, i:i + chunk])
+                          for i in range(0, L, chunk)], dim=1).mean()
+    return ce(logits, labels).mean()
 
 
 @dataclass(frozen=True)
@@ -49,37 +62,37 @@ class Model:
     decode: Callable
 
 
-def build_model(cfg, *, dtype=torch.bfloat16,
-                use_kernels: bool = False) -> Model:
-    """``dtype`` is the compute dtype weights are cast to at use.
+def build_model(cfg, *, dtype=torch.bfloat16, use_kernels: bool = False,
+                ce_chunk: int | None = None, moe_groups: int = 1) -> Model:
+    """``dtype`` is the compute dtype weights are cast to at use;
+    ``ce_chunk`` the loss's sequence chunk; ``moe_groups`` the MoE
+    router's token groups, as in the reference.
 
     ``use_kernels`` (the reference's ``use_pallas``) routes ``forward``
     and ``loss`` through the hand-written kernels, wired as the
     reference wires its Pallas ones: ``ssd_intra_chunk`` for the ssm
-    family, ``flash_attention`` for dense GQA without a window. Prefill and decode run no kernel. On CPU tensors the kernels'
-    plain versions run."""
+    family, ``flash_attention`` for dense and moe GQA without a window.
+    Prefill and decode run no kernel. On CPU tensors the kernels' plain
+    versions run."""
     if cfg.arch_type not in _FAMILIES:
+        item = _NOT_PORTED.get(cfg.arch_type, "6")
         raise NotImplementedError(
             f"{cfg.name}: arch family {cfg.arch_type!r} is not ported yet "
-            f"(ROADMAP.md queue A item 6)")
+            f"(ROADMAP.md queue A item {item})")
     fam = _FAMILIES[cfg.arch_type]
+    if fam is transformer:
+        transformer.check_ported(cfg)
     kern = {}
     if use_kernels and cfg.arch_type == "ssm":
         from repro_torch.kernels import ops
         kern["ssd_kernel"] = ops.ssd_intra_chunk
-    if use_kernels and cfg.arch_type == "dense" \
+    if use_kernels and cfg.arch_type in ("dense", "moe") \
             and cfg.attn_kind == "gqa" and cfg.window_size is None:
         from repro_torch.kernels import ops
 
         def _fa(q, k, v, cap=None):
             return ops.flash_attention(q, k, v, causal=True, cap=cap)
         kern["attn_kernel"] = _fa
-
-    def _decode_family():
-        if cfg.arch_type not in _DECODE:
-            raise NotImplementedError(
-                f"{cfg.name}: prefill/decode of the {cfg.arch_type!r} "
-                f"family is not ported yet (ROADMAP.md queue A item 6)")
 
     def init(seed, device):
         dev = torch.device(device)
@@ -88,23 +101,23 @@ def build_model(cfg, *, dtype=torch.bfloat16,
         return fam.init(cfg, gen, dev)
 
     def forward(params, batch):
-        return fam.forward(params, cfg, batch, dtype=dtype, **kern)
+        return fam.forward(params, cfg, batch, dtype=dtype,
+                           moe_groups=moe_groups, **kern)
 
     def loss(params, batch):
         logits, aux = forward(params, batch)
-        return cross_entropy(logits, batch["labels"]) + aux
+        return cross_entropy(logits, batch["labels"], chunk=ce_chunk) + aux
 
     def init_cache(batch_size, cache_len, device):
-        _decode_family()
         return fam.init_cache(cfg, batch_size, cache_len, dtype=dtype,
                               device=torch.device(device))
 
     def prefill(params, batch, cache):
-        _decode_family()
-        return fam.prefill(params, cfg, batch, cache, dtype=dtype)
+        return fam.prefill(params, cfg, batch, cache, dtype=dtype,
+                           moe_groups=moe_groups)
 
     def decode(params, tokens, cache, pos):
-        _decode_family()
-        return fam.decode_step(params, cfg, tokens, cache, pos, dtype=dtype)
+        return fam.decode_step(params, cfg, tokens, cache, pos, dtype=dtype,
+                               moe_groups=moe_groups)
 
     return Model(cfg, init, forward, loss, init_cache, prefill, decode)

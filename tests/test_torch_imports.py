@@ -80,6 +80,44 @@ print("ok")
     assert out.stdout.strip() == "ok"
 
 
+MODEL_MODULES = ["repro_torch.configs." + m for m in
+                 ("gpt3_family", "qwen1_5_4b", "gemma2_9b", "arctic_480b",
+                  "minicpm3_4b", "qwen3_moe_235b", "internvl2_26b",
+                  "whisper_small", "zamba2_2_7b")] + [
+    "repro_torch.models.layers", "repro_torch.models.transformer",
+    "repro_torch.models.registry", "repro_torch.launch.serve_decode"]
+
+
+def test_model_modules_import_no_jax():
+    """The modules of the paper-models slice (every config of the
+    reference, the MoE layer, the dense and moe prefill and decode)
+    exist and import nothing of JAX, the JAX package or ml_dtypes;
+    ``repro_torch.configs`` exports what ``repro.configs`` exports and
+    resolves every config."""
+    code = f"""
+import importlib, sys
+for name in {MODEL_MODULES!r}:
+    importlib.import_module(name)
+import repro_torch.configs as c
+want = ["ARCH_IDS", "INPUT_SHAPES", "MLAConfig", "MoEConfig", "ModelConfig",
+        "SSMConfig", "ShapeConfig", "all_configs", "get_config", "reduced",
+        "GPT3_CONFIGS", "GPT3_MOE_1_8B", "PAPER_TABLE2", "get_paper_config"]
+missing = [n for n in want if not hasattr(c, n)]
+assert not missing, missing
+assert len(c.all_configs()) == 10
+assert [c.get_paper_config(k).name for k in c.PAPER_ARCH_IDS][-1] == \
+    "gpt3-1.8b-moe"
+from repro_torch.models.layers import moe_apply, moe_apply_sorted, moe_route
+from repro_torch.models.transformer import decode_step, init_cache, prefill
+bad = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r})
+assert not bad, bad
+print("ok")
+"""
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_chip_smoke_fails_without_cuda():
     out = _run(["chip_smoke.py"], env_extra={"CUDA_VISIBLE_DEVICES": ""})
     assert out.returncode != 0

@@ -352,12 +352,20 @@ def test_decode_matches_forward_and_reference():
 
 
 def test_dense_prefill_and_decode_raise():
+    """Dense prefill and decode are ported (they raised before): on the
+    CPU, a prefill and a decode step of stablelm_1_6b agree with the
+    forward (2e-3, as tests/test_archs.py)."""
     _, cfg = _cfgs("stablelm_1_6b")
-    pm = build_model(cfg)
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        pm.init_cache(1, 8, "cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        pm.decode({}, None, None, 0)
+    pm = build_model(cfg, dtype=torch.float32)
+    tp = pm.init(0, "cpu")
+    tokens = torch.from_numpy(randint(prng_key(3), (2, 12), 0,
+                                      cfg.vocab_size))
+    logits, _ = pm.forward(tp, {"tokens": tokens})
+    cache = pm.init_cache(2, 16, "cpu")
+    last, cache = pm.prefill(tp, {"tokens": tokens[:, :11]}, cache)
+    dec, cache = pm.decode(tp, tokens[:, 11:], cache, 11)
+    assert float((last[:, 0] - logits[:, 10]).abs().max()) < 2e-3
+    assert float((dec[:, 0] - logits[:, 11]).abs().max()) < 2e-3
 
 
 def test_serve_decode_on_the_cpu():
@@ -375,6 +383,32 @@ def test_serve_decode_on_the_cpu():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="is_available"):
             serve_decode.main(["--arch", "mamba2_370m", "--reduced"])
+
+
+@pytest.mark.parametrize("arch", ["stablelm_1_6b", "gpt3_1_8b_moe"])
+def test_serve_decode_dense_and_moe_on_the_cpu(arch):
+    """The launcher serves the dense and moe families too (the paper's
+    models by their keys). For the dense model its greedy tokens are the
+    argmax of the forward over the prompt and the tokens before them; a
+    MoE decode step routes B tokens against a capacity sized for B, so
+    it may drop where the forward did not (tests/test_torch_decode.py
+    holds its decode with capacity = n_experts)."""
+    seq = serve_decode.main(["--arch", arch, "--reduced", "--device", "cpu",
+                             "--batch", "2", "--prompt-len", "8",
+                             "--new-tokens", "4"])
+    get = (pconfigs.get_paper_config if arch.startswith("gpt3")
+           else pconfigs.get_config)
+    cfg = pconfigs.reduced(get(arch))
+    assert seq.shape == (2, 4) and seq.dtype == torch.int32
+    assert ((0 <= seq) & (seq < cfg.vocab_size)).all()
+    if cfg.moe is not None:
+        return
+    k1, _ = split(prng_key(0))
+    prompt = torch.from_numpy(randint(k1, (2, 8), 0, cfg.vocab_size))
+    pm = build_model(cfg)
+    logits, _ = pm.forward(pm.init(0, "cpu"),
+                           {"tokens": torch.cat([prompt, seq[:, :3]], 1)})
+    assert torch.equal(logits[:, 7:].argmax(-1).to(torch.int32), seq)
 
 
 # ---------------------------------------------------------- checkpoints
