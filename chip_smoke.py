@@ -20,7 +20,8 @@ Phases, each of which exits non-zero on failure:
    timed on the path's bf16 and f32 inputs, the f32 body and SDPA f32
    also at the two GPT-3 widths)
    and ssd_intra_chunk (B and C per head, from one group expanded over
-   the heads as the path passes them, two groups repeated, ragged
+   the heads as the paths pass them — mamba2_370m's n 128 with 32 heads
+   and zamba2_2_7b's n 64 with 80 —, two groups repeated, ragged
    chunks) within the reference's tolerances at the paths' shapes and
    the reference's sweep, each check with its largest share of the
    allowance — with CUDA-event times (and times replayed from a CUDA
@@ -54,7 +55,7 @@ Phases, each of which exits non-zero on failure:
    warm forward timed beside the first with B4's share of it, and a
    batch-4 x 512 prefill + 16 greedy decode steps against the forward;
 9. the durability tiers: ``stablelm_1_6b`` at its published widths and
-   the deepest depth (at least 2 layers) at which keyframe + delta fit
+   the deepest depth, at most 2 layers, at which keyframe + delta fit
    twice on the disk (local, object store; within 75 % of the free disk
    and 90 % of phase 4's peak) and twice in memory (two peers holding
    their replicas in a tmpfs directory; within 40 % of the available
@@ -79,7 +80,19 @@ Phases, each of which exits non-zero on failure:
    bf16, ``gpt3_2_7b`` also in f32 (each layer at the f32 kernel
    tolerance) and decoded in f32: a 4 x 512 prefill and 16 greedy steps,
    each step's logits against the forward over the same tokens; B3's
-   launches counted around each kernel path, each part timed.
+   launches counted around each kernel path, each part timed;
+11. the remaining decoder families at their published widths, one model
+   on the card at a time: ``zamba2_2_7b`` at full depth from a seed (its
+   f32 params through the engine and back bit-equal, the kernel forward
+   at 4 x 2048 against the plain hook with B4's launches counted, one per
+   SSM block, at its n 64 and 80 heads, a warm call timed with B4's
+   share, a 4 x 512 prefill and 16 greedy decode steps against the
+   forward); ``gemma2_9b`` in f32 as deep as the card holds (at least
+   two local/global pairs), a 1 x 4608 prompt past its 4096 window
+   prefilled through the paired ring cache and 16 teacher-forced decode
+   steps against the forward; ``minicpm3_4b`` (MLA) at full depth, a 4 x
+   512 prefill and 16 decode steps with the naive and the absorbed path,
+   each against the forward and against each other; each leg timed.
 
 The last three lines of standard output are one JSON object of
 per-kernel numbers, the card's name and power limit, and one JSON
@@ -130,6 +143,9 @@ ATTN_GPT3 = {"gpt3_2_7b": (BATCH, 32, SEQ, 80),
 #: (B and C from its one group, expanded over the 32 heads)
 M_BATCH, M_SEQ, M_PROMPT, M_NEW = 4, 2048, 512, 16
 SSD = (M_BATCH, M_SEQ // 256, 256, 32, 64, 128)
+#: zamba2_2_7b's ssd_intra_chunk on the same batch (phase 11): 80 heads
+#: of 64, state size n 64, B and C from its one group
+SSD_ZAMBA2 = (M_BATCH, M_SEQ // 256, 256, 80, 64, 64)
 #: tolerances (with their reasons at the checks): the reference's kernel
 #: tolerances (tests/test_kernels.py), its model-level one
 #: (tests/test_use_pallas.py) and its decode one (tests/test_archs.py)
@@ -568,7 +584,8 @@ def check_ssd(device) -> dict:
     err = 0.0
     print("  ssd_intra_chunk (B4) against ssd_intra_chunk_plain:",
           flush=True)
-    for shape, groups in ((SSD, 1), (SSD, None), ((1, 2, 64, 2, 32, 16),
+    for shape, groups in ((SSD, 1), (SSD, None), (SSD_ZAMBA2, 1),
+                          ((1, 2, 64, 2, 32, 16),
                           None), ((2, 4, 128, 4, 64, 32), None),
                           ((1, 1, 256, 8, 64, 64), None),
                           ((1, 2, 256, 8, 64, 128), 2),
@@ -581,11 +598,33 @@ def check_ssd(device) -> dict:
         torch.cuda.synchronize()
         err = max(err, _close(f"f32 (b, nc, cl, h, p, n) = {shape}, "
                               f"groups {groups}", got, want, TOL_SSD))
-    args = inputs(*SSD, groups=1)        # the path's layout
-    ms = _cuda_ms(lambda: ops.ssd_intra_chunk(*args))
-    graph_ms = _graph_ms(lambda: ops.ssd_intra_chunk(*args))
-    plain_ms = _cuda_ms(lambda: ssd_intra_chunk_plain(*args))
-    b, nc, cl, h, p, n = SSD
+    timed = {}
+    for shape in (SSD, SSD_ZAMBA2):      # each path's layout
+        args = inputs(*shape, groups=1)
+        timed[shape] = dict(
+            ms=_cuda_ms(lambda: ops.ssd_intra_chunk(*args)),
+            graph_ms=_graph_ms(lambda: ops.ssd_intra_chunk(*args)),
+            plain_ms=_cuda_ms(lambda: ssd_intra_chunk_plain(*args)),
+            **_ssd_bound(*shape))
+        del args
+    z = timed[SSD_ZAMBA2]
+    return {"name": "ssd_intra_chunk", "route": "cuda",
+            "source": f"{CSRC}/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:40",
+            "launches": 0, "max_abs_err": err, **timed[SSD],
+            "library_ms": None,
+            "shape": f"f32 (b, nc, cl, h, p, n) = {SSD}, B and C from one "
+                     f"group",
+            "zamba2": f"{SSD_ZAMBA2}: {z['ms']:.4f} ms (in a CUDA graph "
+                      f"{z['graph_ms']:.4f} ms; plain {z['plain_ms']:.4f} "
+                      f"ms, bound {z['bound_ms']:.4f} ms by "
+                      f"{z['bound_by']}: {z['bytes']} B, {z['flops']} "
+                      f"FLOP)", "zamba2_ms": z["ms"]}
+
+
+def _ssd_bound(b, nc, cl, h, p, n) -> dict:
+    """B4's bytes, FLOPs and bound at a path's shape, B and C from one
+    group as the paths pass them."""
     rows = b * nc * cl
     # x, y and dA per head; B and C once, for the one group the path has
     n_bytes = 4 * rows * (h * (2 * p + 1) + 2 * n)
@@ -593,19 +632,11 @@ def check_ssd(device) -> dict:
     pairs = b * nc * h * cl * (cl + 1) // 2          # s <= l only
     # C·Bᵀ once per group (the path has one), then per head with X
     products = pairs // h * 2 * n + pairs * 2 * p
-    flops = products + pairs             # and the decay's multiply
     bound_ms, bound_by = _bound(
         n_bytes, products / F32_SPLIT_FLOPS + pairs / F32_FLOPS)
-    return {"name": "ssd_intra_chunk", "route": "cuda",
-            "source": f"{CSRC}/ssd_scan.cu",
-            "replaces": "src/repro/kernels/ssd_scan.py:40",
-            "launches": 0, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None,
-            "shape": f"f32 (b, nc, cl, h, p, n) = {SSD}, B and C from one "
-                     f"group", "bytes": n_bytes,
-            "bytes_per_head": per_head_bytes, "flops": flops,
-            "graph_ms": graph_ms}
+    return {"bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes,
+            "bytes_per_head": per_head_bytes,
+            "flops": products + pairs}   # and the decay's multiply
 
 
 # ------------------------------------------------------------ phase 4-5
@@ -1144,111 +1175,117 @@ def quantized_chain(cfg, device):
 
 
 # ---------------------------------------------------------------- phase 8
-def run_mamba2(device, kernel_ms: float):
-    """Phase 8: mamba2_370m at full width. Returns the ssd_intra_chunk
-    launch count of its kernel forward; a second, warm forward (after the
-    count is read) is timed beside the first, with B4's share at phase
-    3's ``kernel_ms`` per launch."""
+def _disk_budget(disk_peak: int) -> float:
+    """The bytes a later phase may hold on the disk at once: min(75 % of
+    the free disk, 90 % of phase 4's peak ``disk_peak``)."""
+    free = shutil.disk_usage(tempfile.gettempdir()).free
+    return min(0.75 * free, 0.9 * disk_peak)
+
+
+def run_ssm_model(key, device, kernel_ms: float, disk_budget: float,
+                  times: dict, prefix: str = "  ") -> int:
+    """Phases 8 and 11: an SSM-family model (``mamba2_370m``,
+    ``zamba2_2_7b``) at full width and depth from seed 0: its f32 params
+    through the engine and back bit-equal (within ``disk_budget`` bytes on
+    the disk); the ``use_kernels`` forward at batch 4 x 2048 against the
+    plain hook, with ssd_intra_chunk's launches counted around it (one
+    per SSM block); a second, warm forward (after the count is read)
+    timed beside the first, with B4's share at phase 3's ``kernel_ms``
+    per launch; a 4 x 512 prefill and 16 greedy decode steps against the
+    forward. Returns B4's launches."""
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.core.checkpointer import FastPersistConfig
     from repro_torch.core.engine import CheckpointEngine, CheckpointSpec
+    from repro_torch.core.partition import Topology
     from repro_torch.data.pipeline import DataConfig, TokenStream
     from repro_torch.kernels import ops
-    from repro_torch.kernels.ref import ssd_intra_chunk_plain
-    from repro_torch.models import mamba2
     from repro_torch.models.registry import build_model, cross_entropy
     from repro_torch.tree import flatten
 
-    cfg = get_config("mamba2_370m")
+    t_leg = time.perf_counter()
+    cfg = get_config(key)
     model = build_model(cfg, dtype=torch.float32, use_kernels=True)
     params = model.init(0, device)
     n_params = sum(t.numel() for _, t in flatten(params))
-    print(f"phase 8: {cfg.name} at full width ({cfg.n_layers} layers, "
-          f"d_model {cfg.d_model}, d_state {cfg.ssm.d_state}, head_dim "
-          f"{cfg.ssm.head_dim}, chunk {cfg.ssm.chunk}; {n_params} f32 "
-          f"params from seed 0)", flush=True)
+    groups = ("" if not cfg.attn_every else
+              f" in {cfg.n_layers // cfg.attn_every} groups of "
+              f"{cfg.attn_every}, a shared attention block of "
+              f"{cfg.n_heads} heads of {cfg.resolved_head_dim} after each")
+    print(f"{prefix}{cfg.name} at full width: {cfg.n_layers} SSM blocks"
+          f"{groups}; d_model {cfg.d_model}, d_state {cfg.ssm.d_state}, "
+          f"head_dim {cfg.ssm.head_dim}, chunk {cfg.ssm.chunk}; {n_params}"
+          f" f32 params ({4 * n_params} B) from seed 0", flush=True)
+    if 4 * n_params > disk_budget:
+        fail(f"{cfg.name}'s params ({4 * n_params} B) do not fit "
+             f"min(75 % of the free disk, 90 % of phase 4's peak) = "
+             f"{disk_budget:.0f} B")
 
-    # checkpoint round trip through the engine (fastpersist backend)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_mamba2_")
+    # checkpoint round trip through the engine (fastpersist, 2 writers)
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{key}_")
     try:
-        eng = CheckpointEngine(CheckpointSpec(directory=tmp,
-                                              backend="fastpersist"))
+        eng = CheckpointEngine(CheckpointSpec(
+            directory=tmp, backend="fastpersist", fp=FastPersistConfig(
+                topology=Topology(dp_degree=4, ranks_per_node=4))))
         t0 = time.perf_counter()
         st = eng.save(params, 1, {"step": 1}).wait()
         t_save = time.perf_counter() - t0
         t0 = time.perf_counter()
-        got, _ = eng.load(like=model.init(0, "meta"), device=device)
+        got, _ = eng.load(like=model.init(0, "meta"), device=device,
+                          parallel=4)
         torch.cuda.synchronize()
         t_load = time.perf_counter() - t0
         eng.close()
         for (name, a), (_, b) in zip(flatten(got), flatten(params)):
             if a.shape != b.shape or not torch.equal(_ints(a), _ints(b)):
-                fail(f"mamba2 checkpoint: {name} is not bit-equal")
-        print(f"  checkpoint: {st.total_bytes} bytes saved in {t_save:.2f} s"
-              f", loaded in {t_load:.2f} s; all {len(flatten(got))} records"
-              f" bit-equal", flush=True)
+                fail(f"{cfg.name} checkpoint: {name} is not bit-equal")
+        print(f"  checkpoint: {st.total_bytes} bytes (disk budget "
+              f"{disk_budget:.0f} B) saved in {t_save:.2f} s, loaded in "
+              f"{t_load:.2f} s; all {len(flatten(got))} records bit-equal",
+              flush=True)
+        times[f"{cfg.name} checkpoint save / load s"] = (t_save, t_load)
         del got
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     batch = TokenStream(DataConfig(cfg.vocab_size, M_SEQ, M_BATCH, seed=0),
                         device=device).peek(0)
+    plain = build_model(cfg, dtype=torch.float32)   # the plain hook
     with torch.inference_mode():
         _zero_counts()             # just before the kernel forward
         t0 = time.perf_counter()
         logits, _ = model.forward(params, batch)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        first = time.perf_counter() - t0
         launches = ops.ssd_intra_chunk.launches
         loss = float(cross_entropy(logits, batch["labels"]))
-        print(f"  forward batch {M_BATCH} x seq {M_SEQ}: {wall:.3f} s, "
+        print(f"  forward batch {M_BATCH} x seq {M_SEQ}: {first:.3f} s, "
               f"{launches} ssd_intra_chunk launches, loss {loss:.6f}",
               flush=True)
         if launches != cfg.n_layers:
-            fail(f"ssd_intra_chunk launched {launches} times; expected "
-                 f"{cfg.n_layers}")
+            fail(f"{cfg.name}: ssd_intra_chunk launched {launches} times; "
+                 f"expected {cfg.n_layers}")
         if logits.shape != (M_BATCH, M_SEQ, cfg.vocab_size) \
                 or not math.isfinite(loss):
-            fail(f"mamba2 logits {tuple(logits.shape)}, loss {loss}")
-        want, _ = mamba2.forward(params, cfg, batch, dtype=torch.float32,
-                                 ssd_kernel=ssd_intra_chunk_plain)
-        _close(f"f32 logits {tuple(logits.shape)} vs the plain hook",
-               logits, want, TOL_MODEL, rtol=0.0)
+            fail(f"{cfg.name} logits {tuple(logits.shape)}, loss {loss}")
+        want, _ = plain.forward(params, batch)
+        _close(f"{cfg.name} f32 logits {tuple(logits.shape)} vs the plain "
+               f"hook", logits, want, TOL_MODEL, rtol=0.0)
         del logits, want
         t0 = time.perf_counter()
         model.forward(params, batch)
         torch.cuda.synchronize()
         warm = time.perf_counter() - t0
         share = cfg.n_layers * kernel_ms
-        print(f"  forward: first call {wall:.3f} s, warm call {warm:.3f} s;"
+        print(f"  forward: first call {first:.3f} s, warm call {warm:.3f} s;"
               f" B4's {cfg.n_layers} launches at phase 3's {kernel_ms:.4f} "
               f"ms: {share:.3f} ms, {100 * share / 1e3 / warm:.1f} % of the "
               f"warm call", flush=True)
-
-        # serving: prefill a prompt, greedy-decode, hold against forward
-        plain = build_model(cfg, dtype=torch.float32)
-        prompt = batch["tokens"][:, :M_PROMPT]
-        cache = plain.init_cache(M_BATCH, M_PROMPT + M_NEW, device)
-        t0 = time.perf_counter()
-        last, cache = plain.prefill(params, {"tokens": prompt}, cache)
-        tok = last[:, -1:].argmax(dim=-1).to(torch.int32)
-        toks, dec = [tok], []
-        for i in range(M_NEW):
-            lg, cache = plain.decode(params, tok, cache, M_PROMPT + i)
-            dec.append(lg[:, 0])
-            tok = lg[:, -1:].argmax(dim=-1).to(torch.int32)
-            toks.append(tok)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        seq = torch.cat([prompt] + toks[:M_NEW], dim=1)
-        full, _ = model.forward(params, {"tokens": seq})
-        print(f"  prefill {M_BATCH} x {M_PROMPT} + {M_NEW} greedy decode "
-              f"steps: {wall:.3f} s", flush=True)
-        _close("prefill logits vs forward", last[:, 0],
-               full[:, M_PROMPT - 1], TOL_DECODE, rtol=0.0)
-        _close(f"{M_NEW} decode steps' logits vs forward",
-               torch.stack(dec, dim=1), full[:, M_PROMPT:], TOL_DECODE,
-               rtol=0.0)
+        times[f"{cfg.name} f32 forward first / warm s"] = (first, warm)
+    # serving: prefill a prompt, greedy-decode, hold against the forward
+    _greedy_decode(cfg, params, {"tokens": batch["tokens"][:, :M_PROMPT]},
+                   device, times)
+    times[f"{cfg.name} s"] = time.perf_counter() - t_leg
     return launches
 
 
@@ -1259,6 +1296,12 @@ def run_mamba2(device, kernel_ms: float):
 PEER_ROOT = "/dev/shm"
 #: the served tensor of phase 9 (100352 x 2048 bf16) and the read cache
 SERVED, SERVE_CACHE_MB = ".params/embed", 512
+#: phase 9's depth at most: its minimum, 2 layers. At 5 (what the disk
+#: and memory budgets allow) the script ran past 720 s of its 1,200 s
+#: limit once phase 11 came in (799.2 s on an NVIDIA H100 80GB HBM3 at
+#: 700 W); the tiers' paths are the same at any depth, only their bytes
+#: shrink
+TIER_MAX_LAYERS = 2
 
 
 def _tier_depth(cfg, disk_budget: float, mem_budget: float) -> int:
@@ -1322,7 +1365,7 @@ def tiers(device, disk_peak: int) -> int:
         free = shutil.disk_usage(root).free
         mem = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
         disk_budget = min(0.75 * free, 0.9 * disk_peak)
-        n = _tier_depth(cfg, disk_budget, 0.4 * mem)
+        n = min(TIER_MAX_LAYERS, _tier_depth(cfg, disk_budget, 0.4 * mem))
         print(f"phase 9: durability tiers; {free} B free on the disk "
               f"(phase 4 held {disk_peak} B), {mem} B of memory available "
               f"(the peers' replicas live in {PEER_ROOT}); full state "
@@ -1331,12 +1374,12 @@ def tiers(device, disk_peak: int) -> int:
             fail(f"keyframe + delta of a 2-layer {cfg.name} do not fit "
                  f"twice in {disk_budget:.0f} B of disk and twice in "
                  f"{0.4 * mem:.0f} B of memory")
-        print(f"  CUT: n_layers {cfg.n_layers} -> {n} (depth {n}) so "
+        print(f"  CUT: n_layers {cfg.n_layers} -> {n} (widths unchanged):"
+              f" at most {TIER_MAX_LAYERS} for the script's time, and "
               f"keyframe + delta fit twice on the disk (local, object "
               f"store) in min(75 % of the free disk, 90 % of phase 4's "
               f"peak) and twice in memory (2 peers) in 40 % of the "
-              f"available memory (widths unchanged)" if n < cfg.n_layers
-              else f"  depth {n}: no cut", flush=True)
+              f"available memory", flush=True)
         cfg = dataclasses.replace(cfg, n_layers=n)
         local, bucket = (os.path.join(root, d) for d in ("local", "bucket"))
         peer_dirs = [os.path.join(peer_root, f"peer{i}") for i in range(2)]
@@ -1726,7 +1769,7 @@ def paper_models(device, disk_peak: int, times: dict) -> int:
             if key == "gpt3_2_7b":
                 launches += _score_paper(cfg, params, batch, torch.float32,
                                          times)
-                _decode_paper(cfg, params, batch, device, times)
+                _greedy_decode(cfg, params, batch, device, times)
             del params
             gc.collect()
             torch.cuda.empty_cache()
@@ -1735,11 +1778,11 @@ def paper_models(device, disk_peak: int, times: dict) -> int:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _decode_paper(cfg, params, batch, device, times):
-    """gpt3_2_7b in f32: prefill the batch's tokens, then ``M_NEW`` greedy
-    decode steps; the prefill's and each step's logits against the plain
-    forward over the prompt and the tokens generated so far, at
-    TOL_DECODE (as phase 8)."""
+def _greedy_decode(cfg, params, batch, device, times):
+    """A model in f32 (phases 8, 10 and 11): prefill the batch's tokens,
+    then ``M_NEW`` greedy decode steps; the prefill's and each step's
+    logits against the plain forward over the prompt and the tokens
+    generated so far, at TOL_DECODE."""
     import torch
     from repro_torch.models.registry import build_model
 
@@ -1776,6 +1819,198 @@ def _decode_paper(cfg, params, batch, device, times):
                torch.stack(dec, dim=1), full[:, P:], TOL_DECODE, rtol=0.0)
     times[f"{cfg.name} f32 prefill s"] = t_prefill
     times[f"{cfg.name} f32 decode s per token step"] = t_decode / M_NEW
+
+
+# --------------------------------------------------------------- phase 11
+#: gemma2_9b's prompt (1 x 4608, past its 4096 window, so the local
+#: layers' mask bites and the ring is gathered from a wrapped prompt) and
+#: its least depth (two local/global pairs)
+G_PROMPT, G_MIN_LAYERS = 4608, 4
+#: MLA's absorbed decode against its naive one: the reference's
+#: tolerance for the two paths (tests/test_perf_variants.py:52)
+TOL_ABSORB = 2e-4
+
+
+def _teacher_forced(plain, params, tokens, prompt: int, device, times,
+                    what):
+    """Prefill ``tokens[:, :prompt]``, then decode the rest one token at
+    a time (teacher-forced); returns the prefill's last logits and each
+    step's, (B, 1 + steps, V), with the cache the run left."""
+    import torch
+    B, L = tokens.shape
+    cache = plain.init_cache(B, L, device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, cache = plain.prefill(params, {"tokens": tokens[:, :prompt]},
+                                cache)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    out = [last[:, 0]]
+    t0 = time.perf_counter()
+    for i in range(prompt, L):
+        lg, cache = plain.decode(params, tokens[:, i:i + 1], cache, i)
+        out.append(lg[:, 0])
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    steps = L - prompt
+    print(f"  {what}: prefill {B} x {prompt} {t_prefill:.4f} s; {steps} "
+          f"decode steps {t_decode:.4f} s ({t_decode / steps * 1e3:.2f} ms "
+          f"per token step of {B} sequences)", flush=True)
+    times[f"{what} prefill s"] = t_prefill
+    times[f"{what} decode s per token step"] = t_decode / steps
+    return torch.stack(out, dim=1), cache
+
+
+def _gemma2_depth(cfg, free_bytes: int) -> int:
+    """The deepest even depth (at least ``G_MIN_LAYERS``) whose f32
+    params take at most half the card's free memory; the rest holds the
+    forward's f32 logits over 256000 tokens of vocabulary, their
+    soft-cap and the attention's scores."""
+    per_layer = cfg._layer_params(0)
+    fixed = cfg.param_count() - cfg.n_layers * per_layer
+    fit = int((free_bytes / 2 / 4 - fixed) // per_layer)
+    return max(G_MIN_LAYERS, min(cfg.n_layers, fit - fit % 2))
+
+
+def _run_gemma2(device, times):
+    """gemma2_9b at its published widths, f32 from seed 0, as deep as the
+    card holds (at least two pairs): the forward over 1 x (4608 + 16)
+    tokens, then a 4608-token prefill through the paired ring cache and
+    16 teacher-forced decode steps, each against the forward's logits at
+    its position (TOL_DECODE); the rings hold W = 4096 slots."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.models.registry import build_model
+    from repro_torch.tree import flatten
+
+    t_leg = time.perf_counter()
+    full_cfg = get_config("gemma2_9b")
+    depth = _gemma2_depth(full_cfg, torch.cuda.mem_get_info(device)[0])
+    cfg = dataclasses.replace(full_cfg, n_layers=depth)
+    plain = build_model(cfg, dtype=torch.float32)
+    params = plain.init(0, device)
+    n_params = sum(t.numel() for _, t in flatten(params))
+    cut = ("" if depth == full_cfg.n_layers else
+           f"; CUT: n_layers {full_cfg.n_layers} -> {depth} (widths "
+           f"unchanged) to fit the card")
+    print(f"  {cfg.name}: {depth} layers (local/global pairs), d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, window {cfg.window_size}, caps "
+          f"{cfg.attn_softcap}/{cfg.final_softcap}; {n_params} f32 params "
+          f"from seed 0{cut}", flush=True)
+    tokens = TokenStream(DataConfig(cfg.vocab_size, G_PROMPT + M_NEW, 1,
+                                    seed=0), device=device).peek(0)["tokens"]
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = plain.forward(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        t_fwd = time.perf_counter() - t0
+        if logits.dtype != torch.float32 or not (
+                logits.abs().max() <= cfg.final_softcap):
+            fail(f"{cfg.name}: logits {logits.dtype}, largest "
+                 f"{float(logits.abs().max())}")
+        want = logits[:, G_PROMPT - 1:].clone()
+        del logits
+        print(f"  forward 1 x {G_PROMPT + M_NEW}: {t_fwd:.4f} s", flush=True)
+        times["gemma2 f32 forward s"] = t_fwd
+        got, cache = _teacher_forced(plain, params, tokens, G_PROMPT,
+                                     device, times, "gemma2 f32")
+        W = cache["k_loc"].shape[2] if "k_loc" in cache else None
+        if W != cfg.window_size:
+            fail(f"{cfg.name}: ring of {W} slots; expected "
+                 f"{cfg.window_size}")
+        print(f"  the local layers' rings hold W = {W} slots; the global "
+              f"layers' cache {cache['k'].shape[2]}", flush=True)
+        _close(f"{cfg.name} prefill and {M_NEW} teacher-forced decode "
+               f"steps' logits vs forward (the ring wrapped)", got, want,
+               TOL_DECODE, rtol=0.0)
+    times["gemma2 layers"] = depth
+    times["gemma2 leg s"] = time.perf_counter() - t_leg
+
+
+def _run_minicpm3(device, times):
+    """minicpm3_4b (MLA) at full depth, f32 from seed 0: the forward at 4
+    x (512 + 16), then a 512-token prefill and 16 teacher-forced decode
+    steps through the latent cache with ``mla_absorb`` off and on, each
+    against the forward (TOL_DECODE) and the two against each other
+    (TOL_ABSORB)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.models.registry import build_model
+    from repro_torch.tree import flatten
+
+    t_leg = time.perf_counter()
+    cfg = get_config("minicpm3_4b")
+    plain = build_model(cfg, dtype=torch.float32)
+    params = plain.init(0, device)
+    m = cfg.mla
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads, MLA ranks q {m.q_lora_rank} / kv "
+          f"{m.kv_lora_rank}, qk {m.qk_nope_head_dim} + "
+          f"{m.qk_rope_head_dim}, v {m.v_head_dim}, vocab {cfg.vocab_size};"
+          f" {sum(t.numel() for _, t in flatten(params))} f32 params from "
+          f"seed 0", flush=True)
+    tokens = TokenStream(DataConfig(cfg.vocab_size, M_PROMPT + M_NEW,
+                                    M_BATCH, seed=0),
+                         device=device).peek(0)["tokens"]
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = plain.forward(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        t_fwd = time.perf_counter() - t0
+        print(f"  forward {M_BATCH} x {M_PROMPT + M_NEW}: {t_fwd:.4f} s",
+              flush=True)
+        times["minicpm3 f32 forward s"] = t_fwd
+        want = logits[:, M_PROMPT - 1:].clone()
+        del logits
+        runs = {}
+        for absorb in (False, True):
+            what = f"minicpm3 f32 {'absorbed' if absorb else 'naive'}"
+            model = build_model(dataclasses.replace(cfg, mla_absorb=absorb),
+                                dtype=torch.float32)
+            runs[absorb], cache = _teacher_forced(
+                model, params, tokens, M_PROMPT, device, times, what)
+            if sorted(cache) != ["latent"] or cache["latent"].shape[-1] \
+                    != m.kv_lora_rank + m.qk_rope_head_dim:
+                fail(f"{what}: cache {sorted(cache)}")
+            del cache
+            _close(f"{what}: prefill and {M_NEW} decode steps' logits vs "
+                   f"forward", runs[absorb], want, TOL_DECODE, rtol=0.0)
+        _close(f"{cfg.name} absorbed vs naive decode logits", runs[True],
+               runs[False], TOL_ABSORB)
+    times["minicpm3 leg s"] = time.perf_counter() - t_leg
+
+
+def decoder_families(device, disk_peak: int, kernel_ms: float,
+                     times: dict) -> int:
+    """Phase 11: the remaining decoder families at their published
+    widths, one model on the card at a time: zamba2_2_7b (B4 in its
+    stack), gemma2_9b (windows, soft-caps, the ring cache) and
+    minicpm3_4b (MLA, both decode paths). Keeps its disk peak under 90 %
+    of phase 4's. Returns B4's launches on the zamba2 forward."""
+    import gc
+
+    import torch
+    print(f"phase 11: the remaining decoder families at their published "
+          f"widths", flush=True)
+    launches = run_ssm_model("zamba2_2_7b", device, kernel_ms,
+                             _disk_budget(disk_peak), times)
+    for run in (_run_gemma2, _run_minicpm3):
+        gc.collect()
+        torch.cuda.empty_cache()
+        run(device, times)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def sass_check():
@@ -1823,6 +2058,13 @@ def main():
              "CUDA card")
     device = torch.device("cuda", 0)
     t_start = time.perf_counter()
+    laps, t_lap = {}, [t_start]
+
+    def lap(name):
+        """Record the seconds since the last lap under ``name``."""
+        now = time.perf_counter()
+        laps[name] = round(now - t_lap[0], 1)
+        t_lap[0] = now
     card = card_line()
     print(f"phase 1: card {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1843,8 +2085,9 @@ def main():
     from repro_torch.kernels import flash_attention as fa, ssd_scan
     smem = {f"flash_attention {dt} hd {hd}": fa.smem_bytes(hd, dt)
             for dt in (torch.bfloat16, torch.float32) for hd in fa.HEAD_DIMS}
-    smem[f"ssd_intra_chunk {SSD} (C Bᵀ, per head)"] = ssd_scan.smem_bytes(
-        SSD[2], SSD[4], SSD[5])
+    for shape in (SSD, SSD_ZAMBA2):
+        smem[f"ssd_intra_chunk {shape} (C Bᵀ, per head)"] = \
+            ssd_scan.smem_bytes(shape[2], shape[4], shape[5])
     print(f"  dynamic shared memory per block, bytes: {smem}", flush=True)
     sass_check()
 
@@ -1864,34 +2107,56 @@ def main():
               f"{e['plain_ms']:.4f} ms, library {lib}, bound "
               f"{e['bound_ms']:.4f} ms by {e['bound_by']}: {e['bytes']} B"
               f"{per_head}, {e['flops']} FLOP)", flush=True)
+        if "zamba2" in e:
+            print(f"  time {e['name']} at zamba2_2_7b's "
+                  f"{e['zamba2']}", flush=True)
     torch.cuda.empty_cache()
+    lap("1-3")
     launches, cfg, state, batch, extras, disk_peak = main_path(
         device, STEPS, BATCH, SEQ)
+    lap("4-5")
     ms = {e["name"]: e["ms"] for e in entries}
     launches["flash_attention"] = score_restored(
         cfg, state, batch, ms["flash_attention"], entries[2]["f32_ms"])
     del batch
     torch.cuda.empty_cache()
+    lap("6")
     launches["ckpt_pack_blocks"] = quantized_save(cfg, state, extras, device)
     del state
     torch.cuda.empty_cache()
     quantized_chain(cfg, device)
     torch.cuda.empty_cache()
-    launches["ssd_intra_chunk"] = run_mamba2(device, ms["ssd_intra_chunk"])
+    lap("7")
+    times = {}
+    launches["ssd_intra_chunk"] = run_ssm_model(
+        "mamba2_370m", device, ms["ssd_intra_chunk"],
+        _disk_budget(disk_peak), times, prefix="phase 8: ")
+    print(f"phase 8 times: {json.dumps(times)}", flush=True)
     torch.cuda.empty_cache()
+    lap("8")
     tiers(device, disk_peak)
     torch.cuda.empty_cache()
+    lap("9")
     times = {}
     launches["flash_attention"] += paper_models(device, disk_peak, times)
     print(f"phase 10 times: {json.dumps(times)}", flush=True)
+    torch.cuda.empty_cache()
+    lap("10")
+    times = {}
+    launches["ssd_intra_chunk"] += decoder_families(
+        device, disk_peak, entries[3]["zamba2_ms"], times)
+    lap("11")
+    print(f"phase 11 times: {json.dumps(times)}", flush=True)
     for e in entries:
         e["launches"] = launches[e["name"]]
+    print(f"seconds per phase: {json.dumps(laps)}", flush=True)
     print(f"every phase passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": [
         {k: v for k, v in e.items()
          if k not in ("shape", "bytes", "bytes_per_head", "flops",
-                      "graph_ms", "library_graph_ms")}
+                      "graph_ms", "library_graph_ms", "zamba2",
+                      "zamba2_ms")}
         for e in entries]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

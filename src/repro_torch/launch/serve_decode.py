@@ -10,8 +10,9 @@ plus ``--device`` and ``--reduced``).
 Weights are random, from seed 0; the prompt holds the token ids the
 example's ``make_batch`` draws. Runs on the CUDA card unless
 ``--device cpu`` is given; asking for cuda without a card raises. Serves
-the dense, moe and ssm families; ``--arch`` also takes the paper's own
-models (``gpt3_0_7b`` … ``gpt3_13b``, ``gpt3_1_8b_moe``).
+the dense (GQA, gemma2's ring cache, MLA's latent cache), moe, ssm and
+hybrid families; ``--arch`` also takes the paper's own models
+(``gpt3_0_7b`` … ``gpt3_13b``, ``gpt3_1_8b_moe``).
 """
 from __future__ import annotations
 
@@ -29,7 +30,10 @@ from repro_torch.train.trainer import resolve_device
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="mamba2_370m")
+    ap.add_argument("--arch", default="mamba2_370m",
+                    help="a config key: the dense, moe, ssm and hybrid "
+                         "ARCH_IDS (not internvl2_26b or whisper_small) "
+                         "or a paper key (gpt3_*)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; raises when CUDA is "

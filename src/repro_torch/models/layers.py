@@ -1,4 +1,4 @@
-"""Shared model building blocks (dense, MoE and Mamba2 parts), plain
+"""Shared model building blocks (dense, MLA, MoE and Mamba2 parts), plain
 functions on tensors — the counterpart of ``repro.models.layers``.
 
 Parameters are nested dicts of tensors in the reference's layout:
@@ -135,6 +135,102 @@ def gqa_qkv(p, x, cfg):
 def gqa_out(p, o):
     B, L, H, hd = o.shape
     return o.reshape(B, L, H * hd) @ p["wo"].to(o.dtype)
+
+
+# ------------------------------------------------------------------- MLA
+
+def mla_init(cfg, generator, device, lead=()):
+    m, d, H = cfg.mla, cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq_a": dense_init(d, m.q_lora_rank, generator, device, lead),
+        "q_norm": rmsnorm_init(m.q_lora_rank, device, lead),
+        "wq_b": dense_init(m.q_lora_rank, H * qk, generator, device, lead),
+        "wkv_a": dense_init(d, m.kv_lora_rank + m.qk_rope_head_dim,
+                            generator, device, lead),
+        "kv_norm": rmsnorm_init(m.kv_lora_rank, device, lead),
+        "wkv_b": dense_init(m.kv_lora_rank,
+                            H * (m.qk_nope_head_dim + m.v_head_dim),
+                            generator, device, lead),
+        "wo": dense_init(H * m.v_head_dim, d, generator, device, lead),
+    }
+
+
+def _f32_einsum(eq, a, b):
+    """An einsum of compute-dtype operands summed in f32: the reference's
+    ``preferred_element_type=jnp.float32`` (the products of bf16 values
+    are exact in f32)."""
+    return torch.einsum(eq, a.float(), b.float())
+
+
+def mla_attention(p, x, cfg, pos, cache=None, cache_pos=None,
+                  absorb=False):
+    """Multi-head latent attention, the reference's ``mla_attention``. The
+    cache holds the COMPRESSED latent (B, S, kv_lora_rank + rope_dim),
+    normalised at write; ``cache`` is this layer's, written in place at
+    ``cache_pos``. pos: (L,) query positions. Returns (out, the cache, or
+    the new entry without one).
+
+    absorb=True attends in latent space: wkv_b's key half is folded into
+    the query and its value half applied after, so per-position K and V
+    are never expanded from the cache. Its score and latent products take
+    compute-dtype operands summed in f32, as the reference's."""
+    m, H = cfg.mla, cfg.n_heads
+    B, L, _ = x.shape
+    nope, rope_d, vd = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    rank = m.kv_lora_rank
+
+    q = rmsnorm(x @ p["wq_a"].to(x.dtype), p["q_norm"], cfg.norm_eps)
+    q = (q @ p["wq_b"].to(x.dtype)).reshape(B, L, H, nope + rope_d)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+
+    kv_a = x @ p["wkv_a"].to(x.dtype)                     # (B,L,rank+rope)
+    latent, k_rope_flat = kv_a[..., :rank], kv_a[..., rank:]
+
+    cos, sin = rope_tables(pos, rope_d, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+    k_rope = apply_rope(k_rope_flat[:, :, None, :], cos, sin)  # (B,L,1,rope)
+    # norm at write: the cache holds the normalised latent
+    latent = rmsnorm(latent, p["kv_norm"], cfg.norm_eps)
+    new_entry = torch.cat([latent, k_rope[:, :, 0, :]], dim=-1)
+
+    if cache is not None:
+        valid = cache_pos + L
+        cache[:, cache_pos:valid] = new_entry
+        full = cache
+        kv_pos = torch.arange(cache.shape[1], device=x.device)
+    else:
+        full, kv_pos, valid = new_entry, pos, None
+
+    latent_all = full[..., :rank]
+    k_rope_all = full[..., rank:]
+
+    if absorb:
+        wkv = p["wkv_b"].to(x.dtype).reshape(rank, H, nope + vd)
+        w_uk, w_uv = wkv[..., :nope], wkv[..., nope:]
+        q_lat = torch.einsum("blhn,rhn->blhr", q_nope, w_uk)
+        s_lat = _f32_einsum("blhr,bsr->bhls", q_lat, latent_all)
+        s_rope = _f32_einsum("blhn,bsn->bhls", q_rope,
+                             k_rope_all.to(x.dtype))
+        s = (s_lat + s_rope) / math.sqrt(nope + rope_d)
+        mask = pos[:, None] >= kv_pos[None, :]
+        if valid is not None:
+            mask &= (kv_pos < valid)[None, :]
+        s = torch.where(mask, s, MASK_VALUE)
+        probs = torch.softmax(s, dim=-1)
+        o_lat = _f32_einsum("bhls,bsr->blhr", probs.to(x.dtype), latent_all)
+        o = torch.einsum("blhr,rhv->blhv", o_lat.to(x.dtype), w_uv)
+    else:
+        kv = (latent_all @ p["wkv_b"].to(x.dtype)).reshape(B, -1, H,
+                                                           nope + vd)
+        k_nope, v = kv[..., :nope], kv[..., nope:]
+        k = torch.cat([k_nope, k_rope_all[:, :, None, :].expand(
+            *k_nope.shape[:3], rope_d)], dim=-1)
+        qq = torch.cat([q_nope, q_rope], dim=-1)
+        o = attention(qq, k, v, q_pos=pos, kv_pos=kv_pos,
+                      kv_valid_len=valid)
+    out = o.reshape(B, L, H * vd) @ p["wo"].to(x.dtype)
+    return out, (cache if cache is not None else new_entry)
 
 
 # ------------------------------------------------------------------- MLP

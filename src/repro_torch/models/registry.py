@@ -1,5 +1,6 @@
-"""Uniform model interface (the dense, moe and ssm families of
-``repro.models.registry``).
+"""Uniform model interface (the dense, moe, ssm and hybrid families of
+``repro.models.registry``; the dense family with GQA or MLA attention
+and gemma2's windows, soft-caps and paired ring cache).
 
 ``build_model(cfg)`` returns a ``Model`` of plain functions:
 
@@ -11,8 +12,10 @@
   prefill(params, batch, cache)     -> (last-token logits, cache)
   decode(params, tokens, cache, pos) -> (logits, cache)
 
-The dense and moe families write into the given KV cache in place and
-return it; the ssm family returns a new cache.
+The dense and moe families write into the given KV (or MLA latent)
+cache in place and return it; the ssm family returns a new cache; the
+hybrid returns a new SSM cache and writes its shared attention's k and
+v in place.
 """
 from __future__ import annotations
 
@@ -21,11 +24,12 @@ from typing import Callable
 
 import torch
 
-from repro_torch.models import mamba2, transformer
+from repro_torch.models import hybrid, mamba2, transformer
 
-_FAMILIES = {"dense": transformer, "moe": transformer, "ssm": mamba2}
+_FAMILIES = {"dense": transformer, "moe": transformer, "ssm": mamba2,
+             "hybrid": hybrid}
 #: families still to port, with their ROADMAP.md queue A item
-_NOT_PORTED = {"hybrid": "6d", "vlm": "6g", "encdec": "6h"}
+_NOT_PORTED = {"vlm": "6g", "encdec": "6h"}
 
 
 def cross_entropy(logits, labels, n_prefix=0, chunk=None):
@@ -71,7 +75,8 @@ def build_model(cfg, *, dtype=torch.bfloat16, use_kernels: bool = False,
     ``use_kernels`` (the reference's ``use_pallas``) routes ``forward``
     and ``loss`` through the hand-written kernels, wired as the
     reference wires its Pallas ones: ``ssd_intra_chunk`` for the ssm
-    family, ``flash_attention`` for dense and moe GQA without a window.
+    and hybrid families, ``flash_attention`` for dense and moe GQA
+    without a window.
     Prefill and decode run no kernel. On CPU tensors the kernels' plain
     versions run."""
     if cfg.arch_type not in _FAMILIES:
@@ -83,7 +88,7 @@ def build_model(cfg, *, dtype=torch.bfloat16, use_kernels: bool = False,
     if fam is transformer:
         transformer.check_ported(cfg)
     kern = {}
-    if use_kernels and cfg.arch_type == "ssm":
+    if use_kernels and cfg.arch_type in ("ssm", "hybrid"):
         from repro_torch.kernels import ops
         kern["ssd_kernel"] = ops.ssd_intra_chunk
     if use_kernels and cfg.arch_type in ("dense", "moe") \

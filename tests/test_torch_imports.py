@@ -85,7 +85,8 @@ MODEL_MODULES = ["repro_torch.configs." + m for m in
                   "minicpm3_4b", "qwen3_moe_235b", "internvl2_26b",
                   "whisper_small", "zamba2_2_7b")] + [
     "repro_torch.models.layers", "repro_torch.models.transformer",
-    "repro_torch.models.registry", "repro_torch.launch.serve_decode"]
+    "repro_torch.models.registry", "repro_torch.models.hybrid",
+    "repro_torch.launch.serve_decode"]
 
 
 def test_model_modules_import_no_jax():
@@ -109,6 +110,8 @@ assert [c.get_paper_config(k).name for k in c.PAPER_ARCH_IDS][-1] == \
     "gpt3-1.8b-moe"
 from repro_torch.models.layers import moe_apply, moe_apply_sorted, moe_route
 from repro_torch.models.transformer import decode_step, init_cache, prefill
+from repro_torch.models.hybrid import decode_step, init_cache, prefill
+from repro_torch.models.layers import mla_attention, mla_init
 bad = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r})
 assert not bad, bad
 print("ok")

@@ -118,10 +118,43 @@ def test_table2_checkpoint_sizes(key):
     ("zamba2_2_7b", "6d"), ("gemma2_9b", "6e"), ("minicpm3_4b", "6f"),
     ("internvl2_26b", "6g"), ("whisper_small", "6h")])
 def test_unported_families_and_features_raise(key, item):
-    """What is not ported yet raises when the model is built, naming its
-    ROADMAP item."""
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        build_model(pconfigs.get_config(key))
+    """What is not ported yet (the two frontends, 6g and 6h) raises when
+    the model is built, naming its ROADMAP item. Items 6d–6f are ported:
+    their full and reduced configs build, and their reduced ones
+    initialise with the reference's tree."""
+    cfg = pconfigs.get_config(key)
+    if item in ("6g", "6h"):
+        for c in (cfg, pconfigs.reduced(cfg)):
+            with pytest.raises(NotImplementedError, match=f"item {item}"):
+                build_model(c)
+        return
+    for c in (cfg, pconfigs.reduced(cfg)):
+        m = build_model(c)
+        assert m.cfg is c
+        assert flatten(m.init(0, "meta"))
+    small = pconfigs.reduced(cfg)
+    want = flatten(_np(ref_build(rconfigs.reduced(
+        rconfigs.get_config(key))).init(jax.random.PRNGKey(0))))
+    assert [(n, tuple(a.shape)) for n, a in want] == \
+        [(n, tuple(t.shape)) for n, t in flatten(
+            build_model(small).init(0, "meta"))]
+
+
+@pytest.mark.parametrize("key", ["zamba2_2_7b", "gemma2_9b", "minicpm3_4b"])
+def test_ported_families_build_at_published_size(key):
+    """The full config of each newly ported family initialises on
+    ``meta`` with the reference's tree at its published size (the
+    reference's shapes from ``jax.eval_shape``, no storage on either
+    side)."""
+    params = flatten(build_model(pconfigs.get_config(key)).init(0, "meta"))
+    shapes = jax.eval_shape(ref_build(rconfigs.get_config(key)).init,
+                            jax.random.PRNGKey(0))
+    want = flatten(jax.tree.map(
+        lambda s: np.lib.stride_tricks.as_strided(
+            np.zeros((), np.float32), s.shape, [0] * len(s.shape)),
+        shapes))
+    assert [(n, tuple(a.shape)) for n, a in want] == \
+        [(n, tuple(t.shape)) for n, t in params]
 
 
 # ------------------------------------------------- tests/test_paper_models
