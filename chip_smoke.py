@@ -16,9 +16,11 @@ Phases, each of which exits non-zero on failure:
    NaN, ±0.0, all-clean and one-dirty cases; flash_attention (bf16 on
    its bf16 tensor-core body, f32 on its 3xTF32 tensor-core body, at
    head dims 64, 80, 96 and 128 — the path's, gpt3_2_7b's and
-   gpt3_0_7b's widths among them — and every variant in both; SDPA
+   gpt3_0_7b's widths among them — and every variant in both; bf16 at
+   internvl2_26b's GQA 6:1 shape, 48 heads on 8 of 128; SDPA
    timed on the path's bf16 and f32 inputs, the f32 body and SDPA f32
-   also at the two GPT-3 widths)
+   also at the two GPT-3 widths, the bf16 body and SDPA (GQA) also at
+   internvl2_26b's)
    and ssd_intra_chunk (B and C per head, from one group expanded over
    the heads as the paths pass them — mamba2_370m's n 128 with 32 heads
    and zamba2_2_7b's n 64 with 80 —, two groups repeated, ragged
@@ -92,7 +94,22 @@ Phases, each of which exits non-zero on failure:
    prefilled through the paired ring cache and 16 teacher-forced decode
    steps against the forward; ``minicpm3_4b`` (MLA) at full depth, a 4 x
    512 prefill and 16 decode steps with the naive and the absorbed path,
-   each against the forward and against each other; each leg timed.
+   each against the forward and against each other; each leg timed;
+12. the two frontend families at their published widths, one model on
+   the card at a time, and the write-rate example: ``internvl2_26b`` in
+   depth as far as half the card's free memory holds its f32 params
+   (the cut printed), 4 x (256 patch embeddings from a seeded generator
+   + 512 tokens) scored through B3 in bf16 (each layer's attention
+   output against the plain version, the loss over the text against the
+   plain forward's, one launch per layer, a warm call with B3's share),
+   then a 4 x (256 + 512) prefill and 16 greedy decode steps in f32
+   against the forward; ``whisper_small`` at full depth (its f32 params
+   through the engine and back bit-equal, the forward at 4 x 1500
+   frames x 448 tokens, a prefill of the frames and 432 tokens and 16
+   greedy steps against the forward; no kernel, as in the reference);
+   ``repro_torch.launch.fastpersist_vs_baseline --mb 1024`` with the
+   state on the card (the baseline's and each FastPersist variant's
+   GB/s, the pipelined submit cost).
 
 The last three lines of standard output are one JSON object of
 per-kernel numbers, the card's name and power limit, and one JSON
@@ -138,6 +155,9 @@ ATTN = (BATCH, 32, SEQ, 64)
 #: / 16)
 ATTN_GPT3 = {"gpt3_2_7b": (BATCH, 32, SEQ, 80),
              "gpt3_0_7b": (BATCH, 16, SEQ, 96)}
+#: internvl2_26b's attention on phase 12's batch (256 patch tokens + 512
+#: text tokens): (B, H, KV, L, hd), GQA 6:1 at head dim 128
+ATTN_VLM = (BATCH, 48, 8, 256 + SEQ, 128)
 #: mamba2_370m: batch x sequence of the forward, prompt and new tokens
 #: of the decode check, and ssd_intra_chunk's (b, nc, cl, h, p, n) there
 #: (B and C from its one group, expanded over the 32 heads)
@@ -445,11 +465,12 @@ def check_kernels(device) -> list:
 def check_attention(device) -> dict:
     """Phase 3, B3: flash_attention against its plain version at the main
     path's shape and at gpt3_2_7b's and gpt3_0_7b's widths (bf16 and f32,
-    the model's strided views) and at the reference's sweep and variants
+    the model's strided views), at internvl2_26b's GQA 6:1 shape (bf16,
+    its forward's dtype) and at the reference's sweep and variants
     (tests/test_kernels.py:126-166, at its tolerances), at head dims 64,
     80, 96 and 128. Times the f32 body beside SDPA f32 at the three
-    widths. Returns the ``kernels`` entry (launches filled in by phase
-    6)."""
+    widths, and the bf16 body beside SDPA at internvl2_26b's shape.
+    Returns the ``kernels`` entry (launches filled in by phase 6)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops
@@ -468,6 +489,8 @@ def check_attention(device) -> dict:
     widths = {"path": ATTN, **ATTN_GPT3}
     cases = [(name, (B, H, H, L, L, hd), {})
              for name, (B, H, L, hd) in widths.items()]
+    B, H, KV, L, hd = ATTN_VLM
+    cases.append(("internvl2", (B, H, KV, L, L, hd), {}))
     cases += [("sweep", (B, H, KV, L, L, hd), {}) for B, H, KV, L, hd in (
         (1, 4, 4, 128, 64), (2, 8, 2, 256, 64), (1, 4, 1, 384, 128),
         (1, 2, 2, 100, 64), (1, 4, 2, 200, 128))]
@@ -485,7 +508,8 @@ def check_attention(device) -> dict:
           "bf16 tensor-core body; f32: 3xTF32 tensor-core body):",
           flush=True)
     for kind, shape, kw in cases:
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in ((torch.bfloat16,) if kind == "internvl2"
+                      else (torch.bfloat16, torch.float32)):
             q, k, v = qkv(*shape, dtype)
             got = ops.flash_attention(q, k, v, **kw)
             want = flash_attention_plain(q, k, v, **kw)
@@ -498,13 +522,15 @@ def check_attention(device) -> dict:
           f"bf16 {max(shares[torch.bfloat16]):.3f}, f32 "
           f"{max(shares[torch.float32]):.3f}", flush=True)
 
-    def timed(B, H, L, hd, dtype, plain=False):
+    def timed(B, H, L, hd, dtype, plain=False, KV=None):
         """Kernel and SDPA (the yardstick only: the port never calls it)
-        on the same causal inputs, events and in a CUDA graph, the plain
-        version too if ``plain``, and the kernel's bound: f32 products
-        at three TF32 products each."""
-        q, k, v = qkv(B, H, H, L, L, hd, dtype)
-        n_bytes = 4 * B * H * L * hd * q.element_size()
+        on the same causal inputs (``KV`` key/value heads, default H),
+        events and in a CUDA graph, the plain version too if ``plain``,
+        and the kernel's bound: f32 products at three TF32 products
+        each."""
+        KV = KV or H
+        q, k, v = qkv(B, H, KV, L, L, hd, dtype)
+        n_bytes = 2 * (H + KV) * B * L * hd * q.element_size()
         flops = 4 * hd * B * H * L * (L + 1) // 2    # causal pairs only
         rate = BF16_FLOPS if dtype == torch.bfloat16 else F32_SPLIT_FLOPS
         bound_ms, bound_by = _bound(n_bytes, flops / rate)
@@ -513,7 +539,8 @@ def check_attention(device) -> dict:
             return ops.flash_attention(q, k, v)
 
         def sdpa():
-            return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            return F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=KV != H)
         t = {"ms": _cuda_ms(kernel), "graph_ms": _graph_ms(kernel),
              "library_ms": _cuda_ms(sdpa), "library_graph_ms": _graph_ms(sdpa),
              "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes,
@@ -521,7 +548,7 @@ def check_attention(device) -> dict:
         if plain:
             t["plain_ms"] = _cuda_ms(lambda: flash_attention_plain(q, k, v))
         print(f"  time flash_attention {str(dtype)[6:]} causal "
-              f"{(B, H, L, hd)}: {t['ms']:.4f} ms (in a CUDA graph "
+              f"{(B, H, L, hd)}, KV {KV}: {t['ms']:.4f} ms (in a CUDA graph "
               f"{t['graph_ms']:.4f} ms); SDPA {t['library_ms']:.4f} ms (in a "
               f"CUDA graph {t['library_graph_ms']:.4f} ms)"
               + (f"; plain {t['plain_ms']:.4f} ms" if plain else "") +
@@ -535,6 +562,8 @@ def check_attention(device) -> dict:
     for B, H, L, hd in ATTN_GPT3.values():
         for dtype in (torch.float32, torch.bfloat16):
             timed(B, H, L, hd, dtype)
+    B, H, KV, L, hd = ATTN_VLM
+    vlm = timed(B, H, L, hd, torch.bfloat16, plain=True, KV=KV)
     bf = timed(*ATTN, torch.bfloat16, plain=True)
     return {"name": "flash_attention", "route": "cuda",
             "source": f"{CSRC}/flash_attention.cu",
@@ -548,7 +577,16 @@ def check_attention(device) -> dict:
             "f32_library_ms": f32["library_ms"],
             "shape": f"bf16 causal {ATTN}", "bytes": bf["bytes"],
             "flops": bf["flops"], "graph_ms": bf["graph_ms"],
-            "library_graph_ms": bf["library_graph_ms"]}
+            "library_graph_ms": bf["library_graph_ms"],
+            "internvl2": f"bf16 causal {ATTN_VLM} (B, H, KV, L, hd): "
+                         f"{vlm['ms']:.4f} ms (in a CUDA graph "
+                         f"{vlm['graph_ms']:.4f} ms; plain "
+                         f"{vlm['plain_ms']:.4f} ms, SDPA "
+                         f"{vlm['library_ms']:.4f} ms (in a CUDA graph "
+                         f"{vlm['library_graph_ms']:.4f} ms), bound "
+                         f"{vlm['bound_ms']:.4f} ms by {vlm['bound_by']}: "
+                         f"{vlm['bytes']} B, {vlm['flops']} FLOP)",
+            "internvl2_ms": vlm["ms"]}
 
 
 def check_ssd(device) -> dict:
@@ -1182,47 +1220,22 @@ def _disk_budget(disk_peak: int) -> float:
     return min(0.75 * free, 0.9 * disk_peak)
 
 
-def run_ssm_model(key, device, kernel_ms: float, disk_budget: float,
-                  times: dict, prefix: str = "  ") -> int:
-    """Phases 8 and 11: an SSM-family model (``mamba2_370m``,
-    ``zamba2_2_7b``) at full width and depth from seed 0: its f32 params
-    through the engine and back bit-equal (within ``disk_budget`` bytes on
-    the disk); the ``use_kernels`` forward at batch 4 x 2048 against the
-    plain hook, with ssd_intra_chunk's launches counted around it (one
-    per SSM block); a second, warm forward (after the count is read)
-    timed beside the first, with B4's share at phase 3's ``kernel_ms``
-    per launch; a 4 x 512 prefill and 16 greedy decode steps against the
-    forward. Returns B4's launches."""
+def _engine_round_trip(cfg, model, params, device, disk_budget: float,
+                       times: dict):
+    """Phases 8, 11 and 12: ``params`` saved through the engine
+    (fastpersist, 2 writers) and loaded back onto the card in parallel,
+    every record bit-equal; within ``disk_budget`` bytes on the disk."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.core.checkpointer import FastPersistConfig
     from repro_torch.core.engine import CheckpointEngine, CheckpointSpec
     from repro_torch.core.partition import Topology
-    from repro_torch.data.pipeline import DataConfig, TokenStream
-    from repro_torch.kernels import ops
-    from repro_torch.models.registry import build_model, cross_entropy
     from repro_torch.tree import flatten
 
-    t_leg = time.perf_counter()
-    cfg = get_config(key)
-    model = build_model(cfg, dtype=torch.float32, use_kernels=True)
-    params = model.init(0, device)
-    n_params = sum(t.numel() for _, t in flatten(params))
-    groups = ("" if not cfg.attn_every else
-              f" in {cfg.n_layers // cfg.attn_every} groups of "
-              f"{cfg.attn_every}, a shared attention block of "
-              f"{cfg.n_heads} heads of {cfg.resolved_head_dim} after each")
-    print(f"{prefix}{cfg.name} at full width: {cfg.n_layers} SSM blocks"
-          f"{groups}; d_model {cfg.d_model}, d_state {cfg.ssm.d_state}, "
-          f"head_dim {cfg.ssm.head_dim}, chunk {cfg.ssm.chunk}; {n_params}"
-          f" f32 params ({4 * n_params} B) from seed 0", flush=True)
-    if 4 * n_params > disk_budget:
-        fail(f"{cfg.name}'s params ({4 * n_params} B) do not fit "
-             f"min(75 % of the free disk, 90 % of phase 4's peak) = "
-             f"{disk_budget:.0f} B")
-
-    # checkpoint round trip through the engine (fastpersist, 2 writers)
-    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{key}_")
+    n_bytes = sum(t.numel() * t.element_size() for _, t in flatten(params))
+    if n_bytes > disk_budget:
+        fail(f"{cfg.name}'s params ({n_bytes} B) do not fit min(75 % of "
+             f"the free disk, 90 % of phase 4's peak) = {disk_budget:.0f} B")
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{cfg.name}_")
     try:
         eng = CheckpointEngine(CheckpointSpec(
             directory=tmp, backend="fastpersist", fp=FastPersistConfig(
@@ -1248,6 +1261,39 @@ def run_ssm_model(key, device, kernel_ms: float, disk_budget: float,
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+
+def run_ssm_model(key, device, kernel_ms: float, disk_budget: float,
+                  times: dict, prefix: str = "  ") -> int:
+    """Phases 8 and 11: an SSM-family model (``mamba2_370m``,
+    ``zamba2_2_7b``) at full width and depth from seed 0: its f32 params
+    through the engine and back bit-equal (within ``disk_budget`` bytes on
+    the disk); the ``use_kernels`` forward at batch 4 x 2048 against the
+    plain hook, with ssd_intra_chunk's launches counted around it (one
+    per SSM block); a second, warm forward (after the count is read)
+    timed beside the first, with B4's share at phase 3's ``kernel_ms``
+    per launch; a 4 x 512 prefill and 16 greedy decode steps against the
+    forward. Returns B4's launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import build_model, cross_entropy
+    from repro_torch.tree import flatten
+
+    t_leg = time.perf_counter()
+    cfg = get_config(key)
+    model = build_model(cfg, dtype=torch.float32, use_kernels=True)
+    params = model.init(0, device)
+    n_params = sum(t.numel() for _, t in flatten(params))
+    groups = ("" if not cfg.attn_every else
+              f" in {cfg.n_layers // cfg.attn_every} groups of "
+              f"{cfg.attn_every}, a shared attention block of "
+              f"{cfg.n_heads} heads of {cfg.resolved_head_dim} after each")
+    print(f"{prefix}{cfg.name} at full width: {cfg.n_layers} SSM blocks"
+          f"{groups}; d_model {cfg.d_model}, d_state {cfg.ssm.d_state}, "
+          f"head_dim {cfg.ssm.head_dim}, chunk {cfg.ssm.chunk}; {n_params}"
+          f" f32 params ({4 * n_params} B) from seed 0", flush=True)
+    _engine_round_trip(cfg, model, params, device, disk_budget, times)
     batch = TokenStream(DataConfig(cfg.vocab_size, M_SEQ, M_BATCH, seed=0),
                         device=device).peek(0)
     plain = build_model(cfg, dtype=torch.float32)   # the plain hook
@@ -1528,7 +1574,7 @@ GPT3_DENSE = ("gpt3_2_7b", "gpt3_0_7b")
 
 
 def _score_paper(cfg, params, batch, dtype, times, routes=None):
-    """Phase 10's scoring of one model: each layer's attention output
+    """Phase 10's and 12's scoring of one model: each layer's attention output
     through B3 against the plain version on the same q, k, v (bf16 at
     2e-2, f32 at 2e-5; comparison launches, not counted), then the
     ``use_kernels`` path with B3's launches counted around it: the bf16
@@ -1548,14 +1594,14 @@ def _score_paper(cfg, params, batch, dtype, times, routes=None):
     f32 = dtype == torch.float32
     tol = TOL_ATTN_F32 if f32 else TOL_ATTN_BF16
     kind = "f32" if f32 else "bf16"
-    layer_errs = []
+    layer_errs, shares = [], []
 
     def checked_hook(q, k, v, cap=None):
         got = ops.flash_attention(q, k, v, causal=True, cap=cap)
         want = flash_attention_plain(q, k, v, causal=True, cap=cap)
         layer_errs.append(_close(
             f"{kind} attention of layer {len(layer_errs)}", got, want, tol,
-            quiet=True))
+            quiet=True, shares=shares))
         return got
 
     def plain_hook(q, k, v, cap=None):
@@ -1587,7 +1633,8 @@ def _score_paper(cfg, params, batch, dtype, times, routes=None):
                  f"{len(layer_errs)} times; expected {cfg.n_layers}")
         print(f"  ok {kind} attention output of each of the {cfg.n_layers} "
               f"layers through B3 vs the plain version: tol {tol} (rtol "
-              f"{tol}), max_abs_err {max(layer_errs)}", flush=True)
+              f"{tol}), max_abs_err {max(layer_errs)}, largest share of "
+              f"the allowance {max(shares):.3f}", flush=True)
         torch.cuda.synchronize()
         _zero_counts()         # just before this model's kernel path
         t0 = time.perf_counter()
@@ -1609,7 +1656,10 @@ def _score_paper(cfg, params, batch, dtype, times, routes=None):
             what = "f32 forward"
         else:
             loss = float(out)
-            plain = float(cross_entropy(plain_logits, batch["labels"]) + aux)
+            n_prefix = (batch["patch_embeds"].shape[1]
+                        if "patch_embeds" in batch else 0)
+            plain = float(cross_entropy(plain_logits, batch["labels"],
+                                        n_prefix) + aux)
             print(f"  bf16 loss (CE + aux) {loss:.6f}, plain forward "
                   f"{plain:.6f}", flush=True)
             if not (math.isfinite(loss) and abs(loss - plain)
@@ -1779,28 +1829,35 @@ def paper_models(device, disk_peak: int, times: dict) -> int:
 
 
 def _greedy_decode(cfg, params, batch, device, times):
-    """A model in f32 (phases 8, 10 and 11): prefill the batch's tokens,
-    then ``M_NEW`` greedy decode steps; the prefill's and each step's
-    logits against the plain forward over the prompt and the tokens
-    generated so far, at TOL_DECODE."""
+    """A model in f32 (phases 8, 10, 11 and 12): prefill the batch's
+    tokens (after its patch embeddings, which take their positions in
+    the cache first, or given its audio frames), then ``M_NEW`` greedy
+    decode steps; the prefill's and each step's logits against the plain
+    forward over the prompt and the tokens generated so far, at
+    TOL_DECODE."""
     import torch
     from repro_torch.models.registry import build_model
 
     plain = build_model(cfg, dtype=torch.float32)
     prompt = batch["tokens"]
+    front = {k: v for k, v in batch.items()
+             if k in ("patch_embeds", "audio_frames")}
     B, P = prompt.shape
+    S = P + (front["patch_embeds"].shape[1] if "patch_embeds" in front
+             else 0)
     with torch.inference_mode():
-        cache = plain.init_cache(B, P + M_NEW, device)
+        cache = plain.init_cache(B, S + M_NEW, device)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        last, cache = plain.prefill(params, {"tokens": prompt}, cache)
+        last, cache = plain.prefill(params, {"tokens": prompt, **front},
+                                    cache)
         torch.cuda.synchronize()
         t_prefill = time.perf_counter() - t0
         tok = last[:, -1:].argmax(dim=-1).to(torch.int32)
         toks, dec = [tok], []
         t0 = time.perf_counter()
         for i in range(M_NEW):
-            lg, cache = plain.decode(params, tok, cache, P + i)
+            lg, cache = plain.decode(params, tok, cache, S + i)
             dec.append(lg[:, 0])
             tok = lg[:, -1:].argmax(dim=-1).to(torch.int32)
             toks.append(tok)
@@ -1808,15 +1865,15 @@ def _greedy_decode(cfg, params, batch, device, times):
         t_decode = time.perf_counter() - t0
         del cache
         full, _ = plain.forward(params, {"tokens": torch.cat(
-            [prompt] + toks[:M_NEW], dim=1)})
-        print(f"  {cfg.name} f32 prefill {B} x {P}: {t_prefill:.4f} s; "
+            [prompt] + toks[:M_NEW], dim=1), **front})
+        print(f"  {cfg.name} f32 prefill {B} x {S}: {t_prefill:.4f} s; "
               f"{M_NEW} greedy decode steps {t_decode:.4f} s "
               f"({t_decode / M_NEW * 1e3:.2f} ms per token step of {B} "
               f"sequences)", flush=True)
         _close(f"{cfg.name} prefill logits vs forward", last[:, 0],
-               full[:, P - 1], TOL_DECODE, rtol=0.0)
+               full[:, S - 1], TOL_DECODE, rtol=0.0)
         _close(f"{cfg.name} {M_NEW} decode steps' logits vs forward",
-               torch.stack(dec, dim=1), full[:, P:], TOL_DECODE, rtol=0.0)
+               torch.stack(dec, dim=1), full[:, S:], TOL_DECODE, rtol=0.0)
     times[f"{cfg.name} f32 prefill s"] = t_prefill
     times[f"{cfg.name} f32 decode s per token step"] = t_decode / M_NEW
 
@@ -1861,15 +1918,16 @@ def _teacher_forced(plain, params, tokens, prompt: int, device, times,
     return torch.stack(out, dim=1), cache
 
 
-def _gemma2_depth(cfg, free_bytes: int) -> int:
-    """The deepest even depth (at least ``G_MIN_LAYERS``) whose f32
-    params take at most half the card's free memory; the rest holds the
-    forward's f32 logits over 256000 tokens of vocabulary, their
-    soft-cap and the attention's scores."""
+def _card_depth(cfg, free_bytes: int, least: int = 1, step: int = 1) -> int:
+    """The deepest depth, a multiple of ``step`` and at least ``least``,
+    whose f32 params take at most half the card's free memory; the rest
+    holds the forward's f32 logits, the attention's scores and the
+    casts of a layer's weights (gemma2_9b: two local/global pairs at
+    least, pairs kept whole; internvl2_26b)."""
     per_layer = cfg._layer_params(0)
     fixed = cfg.param_count() - cfg.n_layers * per_layer
     fit = int((free_bytes / 2 / 4 - fixed) // per_layer)
-    return max(G_MIN_LAYERS, min(cfg.n_layers, fit - fit % 2))
+    return max(least, min(cfg.n_layers, fit - fit % step))
 
 
 def _run_gemma2(device, times):
@@ -1888,7 +1946,8 @@ def _run_gemma2(device, times):
 
     t_leg = time.perf_counter()
     full_cfg = get_config("gemma2_9b")
-    depth = _gemma2_depth(full_cfg, torch.cuda.mem_get_info(device)[0])
+    depth = _card_depth(full_cfg, torch.cuda.mem_get_info(device)[0],
+                        G_MIN_LAYERS, 2)
     cfg = dataclasses.replace(full_cfg, n_layers=depth)
     plain = build_model(cfg, dtype=torch.float32)
     params = plain.init(0, device)
@@ -2013,6 +2072,153 @@ def decoder_families(device, disk_peak: int, kernel_ms: float,
     return launches
 
 
+# --------------------------------------------------------------- phase 12
+#: whisper_small's text context: the forward's tokens, and the decode
+#: check's prompt (W_CTX - M_NEW) plus its M_NEW greedy steps
+W_CTX = 448
+#: the state fastpersist_vs_baseline saves, MiB
+FVB_MB = 1024
+
+
+def _run_internvl2(device, kernel_ms: float, times) -> int:
+    """internvl2_26b at its published widths, f32 params from seed 0, as
+    deep as half the card's free memory allows: a batch of 4 x (256
+    patch embeddings from a seeded generator + 512 tokens) scored through
+    B3 in bf16, the weights cast at use (each layer's attention output
+    against the plain version, the loss over the text against the plain
+    forward's, one launch per layer), a warm call with B3's share at
+    phase 3's ``kernel_ms`` a launch; then a 4 x (256 + 512) prefill and
+    16 greedy decode steps in f32 against the forward. Returns B3's
+    launches."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model, make_batch
+    from repro_torch.tree import flatten
+
+    t_leg = time.perf_counter()
+    full = get_config("internvl2_26b")
+    depth = _card_depth(full, torch.cuda.mem_get_info(device)[0])
+    cfg = dataclasses.replace(full, n_layers=depth)
+    params = build_model(cfg).init(0, device)
+    n_params = sum(t.numel() for _, t in flatten(params))
+    print(f"  CUT: {full.name} n_layers {full.n_layers} -> {depth} (widths "
+          f"unchanged: d_model {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.n_frontend_tokens} "
+          f"patch tokens) so that its f32 params take at most half the "
+          f"card's free memory: {n_params} f32 params from seed 0; all "
+          f"{full.n_layers} layers are {full.param_count()} params, "
+          f"{4 * full.param_count()} B in f32", flush=True)
+    batch = make_batch(cfg, BATCH, SEQ, device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    batch["patch_embeds"] = torch.randn(batch["patch_embeds"].shape,
+                                        generator=gen, device=device)
+    launches = _score_paper(cfg, params, batch, torch.bfloat16, times)
+    warm = times[f"{cfg.name} bf16 loss first/warm s"][1]
+    share = launches * kernel_ms
+    print(f"  B3's {launches} launches at phase 3's {kernel_ms:.4f} ms: "
+          f"{share:.3f} ms, {100 * share / 1e3 / warm:.1f} % of the warm "
+          f"bf16 loss ({warm:.4f} s, the casts of the f32 weights "
+          f"included)", flush=True)
+    _greedy_decode(cfg, params, batch, device, times)
+    times["internvl2 layers"] = depth
+    times["internvl2 leg s"] = time.perf_counter() - t_leg
+    return launches
+
+
+def _run_whisper(device, disk_budget: float, times):
+    """whisper_small at full depth, f32 from seed 0: its params through
+    the engine and back bit-equal; the forward at 4 x 1500 audio frames
+    (from a seeded generator) x 448 tokens; a prefill of the frames and
+    432 tokens and 16 greedy decode steps against the forward. No kernel
+    runs, as in the reference."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.models.registry import build_model
+    from repro_torch.tree import flatten
+
+    t_leg = time.perf_counter()
+    cfg = get_config("whisper_small")
+    model = build_model(cfg, dtype=torch.float32)
+    params = model.init(0, device)
+    n_params = sum(t.numel() for _, t in flatten(params))
+    print(f"  {cfg.name}: {cfg.n_enc_layers} encoder + {cfg.n_layers} "
+          f"decoder layers, d_model {cfg.d_model}, {cfg.n_heads} heads of "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, {cfg.n_enc_ctx} frames; {n_params} f32 "
+          f"params ({4 * n_params} B) from seed 0", flush=True)
+    _engine_round_trip(cfg, model, params, device, disk_budget, times)
+    gen = torch.Generator(device=device).manual_seed(0)
+    frames = torch.randn((M_BATCH, cfg.n_enc_ctx, cfg.d_model),
+                         generator=gen, device=device)
+    tokens = TokenStream(DataConfig(cfg.vocab_size, W_CTX, M_BATCH, seed=0),
+                         device=device).peek(0)["tokens"]
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, aux = model.forward(params, {"tokens": tokens,
+                                             "audio_frames": frames})
+        torch.cuda.synchronize()
+        t_fwd = time.perf_counter() - t0
+        if logits.shape != (M_BATCH, W_CTX, cfg.vocab_size) \
+                or not bool(torch.isfinite(logits).all()) or float(aux):
+            fail(f"{cfg.name}: logits {tuple(logits.shape)}, finite "
+                 f"{bool(torch.isfinite(logits).all())}, aux {float(aux)}")
+        del logits
+    print(f"  f32 forward {M_BATCH} x {cfg.n_enc_ctx} frames x {W_CTX} "
+          f"tokens: {t_fwd:.4f} s", flush=True)
+    times["whisper f32 forward s"] = t_fwd
+    _greedy_decode(cfg, params, {"tokens": tokens[:, :W_CTX - M_NEW],
+                                 "audio_frames": frames}, device, times)
+    times["whisper leg s"] = time.perf_counter() - t_leg
+
+
+def _run_write_rates(times):
+    """``repro_torch.launch.fastpersist_vs_baseline --mb 1024`` on the
+    card: the baseline and each FastPersist variant save the same state
+    once (a failed save raises); each must have written the whole
+    state."""
+    from repro_torch.launch import fastpersist_vs_baseline as fvb
+    t_leg = time.perf_counter()
+    print(f"  repro_torch.launch.fastpersist_vs_baseline --mb {FVB_MB} "
+          f"--device cuda:", flush=True)
+    results, t_submit = fvb.main(["--mb", str(FVB_MB), "--device", "cuda",
+                                  "--dir", tempfile.gettempdir()])
+    n_bytes = FVB_MB * 1024 * 1024 // 14 * 14
+    for name, st in results.items():
+        if st.total_bytes < n_bytes or not st.gbps > 0:
+            fail(f"{name}: wrote {st.total_bytes} B of a {n_bytes} B "
+                 f"state at {st.gbps} GB/s")
+        times[f"{name} GB/s"] = st.gbps
+    times["pipelined submit ms"] = t_submit * 1e3
+    times["write rates leg s"] = time.perf_counter() - t_leg
+
+
+def frontend_families(device, disk_peak: int, kernel_ms: float,
+                      times: dict) -> int:
+    """Phase 12: the two frontend families at their published widths, one
+    model on the card at a time — internvl2_26b (cut in depth; B3 at GQA
+    6:1, head dim 128) and whisper_small (full depth) — then the
+    FastPersist-against-baseline example. Returns B3's launches on the
+    internvl2 forward."""
+    import gc
+
+    import torch
+    print("phase 12: the two frontend families at their published widths"
+          " and the write-rate example", flush=True)
+    launches = _run_internvl2(device, kernel_ms, times)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _run_whisper(device, _disk_budget(disk_peak), times)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _run_write_rates(times)
+    return launches
+
+
 def sass_check():
     """Phase 2: the instructions of each flash_attention body in the SASS
     that ``cuobjdump`` reads from the built library. Fails unless every
@@ -2110,6 +2316,9 @@ def main():
         if "zamba2" in e:
             print(f"  time {e['name']} at zamba2_2_7b's "
                   f"{e['zamba2']}", flush=True)
+        if "internvl2" in e:
+            print(f"  time {e['name']} at internvl2_26b's "
+                  f"{e['internvl2']}", flush=True)
     torch.cuda.empty_cache()
     lap("1-3")
     launches, cfg, state, batch, extras, disk_peak = main_path(
@@ -2147,6 +2356,11 @@ def main():
         device, disk_peak, entries[3]["zamba2_ms"], times)
     lap("11")
     print(f"phase 11 times: {json.dumps(times)}", flush=True)
+    times = {}
+    launches["flash_attention"] += frontend_families(
+        device, disk_peak, entries[2]["internvl2_ms"], times)
+    lap("12")
+    print(f"phase 12 times: {json.dumps(times)}", flush=True)
     for e in entries:
         e["launches"] = launches[e["name"]]
     print(f"seconds per phase: {json.dumps(laps)}", flush=True)
@@ -2156,7 +2370,7 @@ def main():
         {k: v for k, v in e.items()
          if k not in ("shape", "bytes", "bytes_per_head", "flops",
                       "graph_ms", "library_graph_ms", "zamba2",
-                      "zamba2_ms")}
+                      "zamba2_ms", "internvl2", "internvl2_ms")}
         for e in entries]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
-"""Uniform model interface (the dense, moe, ssm and hybrid families of
-``repro.models.registry``; the dense family with GQA or MLA attention
-and gemma2's windows, soft-caps and paired ring cache).
+"""Uniform model interface over every family of
+``repro.models.registry``: dense and moe (GQA or MLA attention, gemma2's
+windows, soft-caps and paired ring cache), vlm (the dense transformer
+with a vision prefix), ssm, hybrid and encdec.
 
 ``build_model(cfg)`` returns a ``Model`` of plain functions:
 
@@ -12,10 +13,13 @@ and gemma2's windows, soft-caps and paired ring cache).
   prefill(params, batch, cache)     -> (last-token logits, cache)
   decode(params, tokens, cache, pos) -> (logits, cache)
 
-The dense and moe families write into the given KV (or MLA latent)
-cache in place and return it; the ssm family returns a new cache; the
-hybrid returns a new SSM cache and writes its shared attention's k and
-v in place.
+The dense, moe, vlm and encdec families write into the given KV (or
+MLA latent) cache in place and return it (encdec also puts the encoder
+output in it); the ssm family returns a new cache; the hybrid returns a
+new SSM cache and writes its shared attention's k and v in place.
+
+``make_batch`` is the reference's synthetic batch: the same token and
+label ids, and its constant frontend inputs.
 """
 from __future__ import annotations
 
@@ -24,12 +28,11 @@ from typing import Callable
 
 import torch
 
-from repro_torch.models import hybrid, mamba2, transformer
+from repro_torch.data.pipeline import prng_key, randint, split
+from repro_torch.models import encdec, hybrid, mamba2, transformer
 
-_FAMILIES = {"dense": transformer, "moe": transformer, "ssm": mamba2,
-             "hybrid": hybrid}
-#: families still to port, with their ROADMAP.md queue A item
-_NOT_PORTED = {"vlm": "6g", "encdec": "6h"}
+_FAMILIES = {"dense": transformer, "moe": transformer, "vlm": transformer,
+             "ssm": mamba2, "hybrid": hybrid, "encdec": encdec}
 
 
 def cross_entropy(logits, labels, n_prefix=0, chunk=None):
@@ -75,23 +78,16 @@ def build_model(cfg, *, dtype=torch.bfloat16, use_kernels: bool = False,
     ``use_kernels`` (the reference's ``use_pallas``) routes ``forward``
     and ``loss`` through the hand-written kernels, wired as the
     reference wires its Pallas ones: ``ssd_intra_chunk`` for the ssm
-    and hybrid families, ``flash_attention`` for dense and moe GQA
+    and hybrid families, ``flash_attention`` for dense, moe and vlm GQA
     without a window.
-    Prefill and decode run no kernel. On CPU tensors the kernels' plain
-    versions run."""
-    if cfg.arch_type not in _FAMILIES:
-        item = _NOT_PORTED.get(cfg.arch_type, "6")
-        raise NotImplementedError(
-            f"{cfg.name}: arch family {cfg.arch_type!r} is not ported yet "
-            f"(ROADMAP.md queue A item {item})")
+    Prefill and decode run no kernel, nor does encdec. On CPU tensors
+    the kernels' plain versions run."""
     fam = _FAMILIES[cfg.arch_type]
-    if fam is transformer:
-        transformer.check_ported(cfg)
     kern = {}
     if use_kernels and cfg.arch_type in ("ssm", "hybrid"):
         from repro_torch.kernels import ops
         kern["ssd_kernel"] = ops.ssd_intra_chunk
-    if use_kernels and cfg.arch_type in ("dense", "moe") \
+    if use_kernels and cfg.arch_type in ("dense", "moe", "vlm") \
             and cfg.attn_kind == "gqa" and cfg.window_size is None:
         from repro_torch.kernels import ops
 
@@ -111,7 +107,11 @@ def build_model(cfg, *, dtype=torch.bfloat16, use_kernels: bool = False,
 
     def loss(params, batch):
         logits, aux = forward(params, batch)
-        return cross_entropy(logits, batch["labels"], chunk=ce_chunk) + aux
+        n_prefix = 0
+        if cfg.frontend == "vision" and "patch_embeds" in batch:
+            n_prefix = batch["patch_embeds"].shape[1]
+        return cross_entropy(logits, batch["labels"], n_prefix,
+                             chunk=ce_chunk) + aux
 
     def init_cache(batch_size, cache_len, device):
         return fam.init_cache(cfg, batch_size, cache_len, dtype=dtype,
@@ -126,3 +126,26 @@ def build_model(cfg, *, dtype=torch.bfloat16, use_kernels: bool = False,
                                moe_groups=moe_groups)
 
     return Model(cfg, init, forward, loss, init_cache, prefill, decode)
+
+
+def make_batch(cfg, batch_size: int, seq_len: int, seed: int = 0,
+               dtype=torch.bfloat16, device="cuda"):
+    """The reference's synthetic batch on ``device``: token and label ids
+    drawn as ``jax.random`` draws them from ``PRNGKey(seed)`` (so they
+    equal the reference's), and the frontends' inputs at 0.01 in
+    ``dtype``: ``patch_embeds`` (B, n_frontend_tokens, d_model) for the
+    vision frontend, ``audio_frames`` (B, n_enc_ctx, d_model) for
+    encdec."""
+    k1, k2 = split(prng_key(seed))
+    shape = (batch_size, seq_len)
+    batch = {name: torch.from_numpy(randint(k, shape, 0, cfg.vocab_size))
+             .to(device) for name, k in (("tokens", k1), ("labels", k2))}
+    if cfg.frontend == "vision":
+        batch["patch_embeds"] = torch.full(
+            (batch_size, cfg.n_frontend_tokens, cfg.d_model), 0.01,
+            dtype=dtype, device=device)
+    if cfg.arch_type == "encdec":
+        batch["audio_frames"] = torch.full(
+            (batch_size, cfg.n_enc_ctx, cfg.d_model), 0.01, dtype=dtype,
+            device=device)
+    return batch

@@ -1,7 +1,7 @@
 """Decoder-only transformer for the dense and moe families, with GQA or
 MLA attention and gemma2's local/global windows, soft-caps, post-norms
-and paired ring cache (the counterpart of ``repro.models.transformer``,
-less the vision frontend).
+and paired ring cache, and the vlm family's vision prefix (the
+counterpart of ``repro.models.transformer``).
 
 Layers are stacked on a leading axis, as in the reference; a Python loop
 over the layers replaces ``lax.scan``. The decode cache is stacked the
@@ -26,23 +26,10 @@ from repro_torch.models import layers as ly
 GLOBAL_WINDOW = 2 ** 30
 
 
-def check_ported(cfg):
-    """Refuse what this module does not port yet, naming the ROADMAP.md
-    queue A item that brings it."""
-    if cfg.frontend == "vision":
-        missing = "the vision frontend (item 6g)"
-    elif cfg.frontend is not None:
-        missing = f"the {cfg.frontend} frontend (item 6h)"
-    else:
-        return
-    raise NotImplementedError(
-        f"{cfg.name}: {missing} not ported yet (ROADMAP.md queue A)")
-
-
 def init(cfg, generator, device):
     """f32 parameters of the reference's tree (``layers`` stacked on a
-    leading ``n_layers`` axis; a MoE layer's experts stacked (L, E, ...))."""
-    check_ported(cfg)
+    leading ``n_layers`` axis; a MoE layer's experts stacked (L, E, ...);
+    the vision frontend's ``vis_proj``)."""
     L = (cfg.n_layers,)
     d = cfg.d_model
     layer = {"ln1": ly.rmsnorm_init(d, device, L),
@@ -68,6 +55,8 @@ def init(cfg, generator, device):
     if not cfg.tie_embeddings:
         params["lm_head"] = ly.dense_init(d, cfg.vocab_size, generator,
                                           device)
+    if cfg.frontend == "vision":
+        params["vis_proj"] = ly.dense_init(d, d, generator, device)
     return params
 
 
@@ -165,6 +154,17 @@ def _embed(params, cfg, tokens, dtype):
     return x
 
 
+def embed_inputs(params, cfg, batch, dtype):
+    """The token embedding, with the vision frontend's patch embeddings
+    (cast to ``dtype``, projected through ``vis_proj``) before the
+    tokens. Returns (x, n_prefix): the number of prefix positions."""
+    x = _embed(params, cfg, batch["tokens"], dtype)
+    if cfg.frontend != "vision" or "patch_embeds" not in batch:
+        return x, 0
+    vis = batch["patch_embeds"].to(dtype) @ params["vis_proj"].to(dtype)
+    return torch.cat([vis, x], dim=1), vis.shape[1]
+
+
 def _unembed(params, cfg, x):
     """Logits in the compute dtype; under a final soft-cap, soft-capped in
     f32 (so gemma2's logits are f32 in bf16 too)."""
@@ -179,9 +179,10 @@ def _unembed(params, cfg, x):
 def forward(params, cfg, batch, *, dtype=torch.bfloat16, moe_groups=1,
             attn_kernel=None, moe_kernel=None):
     """Teacher-forced full-sequence forward. Returns (logits, aux_loss),
-    the aux loss summed over the layers."""
-    check_ported(cfg)
-    x = _embed(params, cfg, batch["tokens"], dtype)
+    the aux loss summed over the layers. A vision prefix is attended
+    causally with the tokens, as in the reference; its logits are
+    returned too."""
+    x, _ = embed_inputs(params, cfg, batch, dtype)
     pos = torch.arange(x.shape[1], device=x.device)
     x, aux = _layers(params, cfg, x, pos, moe_groups=moe_groups,
                      attn_kernel=attn_kernel, moe_kernel=moe_kernel)
@@ -199,7 +200,6 @@ def init_cache(cfg, batch_size: int, cache_len: int, dtype=torch.bfloat16,
                *, device):
     """The zero decode cache on ``device``, stacked over the layers (the
     pair layout when ``_paired``; MLA's latent cache)."""
-    check_ported(cfg)
     L = cfg.n_layers
 
     def zeros(*shape):
@@ -326,9 +326,10 @@ def _with_cache(params, cfg, x, cache, start_pos: int, moe_groups):
 
 def prefill(params, cfg, batch, cache, *, dtype=torch.bfloat16,
             moe_groups=1):
-    """Run the prompt, writing its cache entries into ``cache`` from
-    position 0; returns (last-token logits (B, 1, V), the cache)."""
-    x = _embed(params, cfg, batch["tokens"], dtype)
+    """Run the prompt (after its vision prefix, if any), writing its cache
+    entries into ``cache`` from position 0; returns (last-token logits
+    (B, 1, V), the cache)."""
+    x, _ = embed_inputs(params, cfg, batch, dtype)
     if _paired(cfg) and "k_loc" in cache:
         x = _prefill_paired(params, cfg, x, cache, moe_groups)
     else:
@@ -339,8 +340,8 @@ def prefill(params, cfg, batch, cache, *, dtype=torch.bfloat16,
 def decode_step(params, cfg, tokens, cache, pos, *, dtype=torch.bfloat16,
                 moe_groups=1):
     """One token per sequence against the cache. tokens (B, 1); ``pos``
-    is the number of tokens already in the cache. Returns (logits (B, 1,
-    V), the cache)."""
+    is the number of positions already in the cache, a vision prefix
+    included. Returns (logits (B, 1, V), the cache)."""
     x = _embed(params, cfg, tokens, dtype)
     if _paired(cfg) and "k_loc" in cache:
         x = _decode_paired(params, cfg, x, cache, int(pos), moe_groups)

@@ -86,13 +86,17 @@ MODEL_MODULES = ["repro_torch.configs." + m for m in
                   "whisper_small", "zamba2_2_7b")] + [
     "repro_torch.models.layers", "repro_torch.models.transformer",
     "repro_torch.models.registry", "repro_torch.models.hybrid",
-    "repro_torch.launch.serve_decode"]
+    "repro_torch.models.encdec", "repro_torch.launch.serve_decode",
+    "repro_torch.launch.quickstart",
+    "repro_torch.launch.fastpersist_vs_baseline",
+    "repro_torch.launch.train_100m"]
 
 
 def test_model_modules_import_no_jax():
-    """The modules of the paper-models slice (every config of the
-    reference, the MoE layer, the dense and moe prefill and decode)
-    exist and import nothing of JAX, the JAX package or ml_dtypes;
+    """The modules of the model slices (every config of the reference,
+    the MoE layer, the dense and moe prefill and decode, the hybrid, the
+    encoder-decoder) and the launchers exist and import nothing of JAX,
+    the JAX package or ml_dtypes;
     ``repro_torch.configs`` exports what ``repro.configs`` exports and
     resolves every config."""
     code = f"""
@@ -112,6 +116,9 @@ from repro_torch.models.layers import moe_apply, moe_apply_sorted, moe_route
 from repro_torch.models.transformer import decode_step, init_cache, prefill
 from repro_torch.models.hybrid import decode_step, init_cache, prefill
 from repro_torch.models.layers import mla_attention, mla_init
+from repro_torch.models.encdec import decode_step, encode, init_cache, prefill
+from repro_torch.models.registry import make_batch
+from repro_torch.models.transformer import embed_inputs
 bad = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r})
 assert not bad, bad
 print("ok")

@@ -118,16 +118,9 @@ def test_table2_checkpoint_sizes(key):
     ("zamba2_2_7b", "6d"), ("gemma2_9b", "6e"), ("minicpm3_4b", "6f"),
     ("internvl2_26b", "6g"), ("whisper_small", "6h")])
 def test_unported_families_and_features_raise(key, item):
-    """What is not ported yet (the two frontends, 6g and 6h) raises when
-    the model is built, naming its ROADMAP item. Items 6d–6f are ported:
-    their full and reduced configs build, and their reduced ones
-    initialise with the reference's tree."""
+    """Items 6d–6h are ported: each family's full and reduced configs
+    build, and its reduced one initialises with the reference's tree."""
     cfg = pconfigs.get_config(key)
-    if item in ("6g", "6h"):
-        for c in (cfg, pconfigs.reduced(cfg)):
-            with pytest.raises(NotImplementedError, match=f"item {item}"):
-                build_model(c)
-        return
     for c in (cfg, pconfigs.reduced(cfg)):
         m = build_model(c)
         assert m.cfg is c
