@@ -109,7 +109,27 @@ Phases, each of which exits non-zero on failure:
    greedy steps against the forward; no kernel, as in the reference);
    ``repro_torch.launch.fastpersist_vs_baseline --mb 1024`` with the
    state on the card (the baseline's and each FastPersist variant's
-   GB/s, the pipelined submit cost).
+   GB/s, the pipelined submit cost);
+13. expert parallelism across 4 processes on the one card, joined by a
+   ``gloo`` process group (NCCL refuses two ranks on one GPU), and the
+   dry run: (a) ``gpt3_1_8b_moe`` cut to 4 of its 24 layers at its
+   published widths, capacity = n_experts, on the meshes 1 x 4 and 2 x
+   2 (data x model): each rank's ``local_params`` and data shard through
+   ``build_model(use_kernels=True, mesh=...)`` in bf16 and f32 (B3 at
+   head dim 64 on every rank, its launches counted), each rank's logits
+   against the single-process forward (bf16 within 2e-2 on the tokens
+   before a routing flip, f32 within 1e-4) and its aux against the
+   per-data-shard rule; (b) ``qwen3_moe_235b``'s MoE layer at its
+   published widths (128 experts of 4096 x 1536, top 8, capacity 1.25)
+   in f32 on 1 x 4, the ranks making the 9.66 GB layer in turn, each
+   rank's output against the single-process sorted layer within 1e-4,
+   timed beside the sorted and einsum layers on one process; (c)
+   ``repro_torch.launch.dryrun.lower_one("gpt3_1_8b_moe", "train_4k")``
+   with and without ``shard_map_moe`` on the 16 x 16 mesh (meta
+   tensors), and ``op_cost`` around one real bf16 forward of (a)'s
+   model on the card, its flops equal to the same forward's on meta,
+   with the achieved rate. A rank that fails, exits non-zero or does
+   not finish in time fails the phase.
 
 The last three lines of standard output are one JSON object of
 per-kernel numbers, the card's name and power limit, and one JSON
@@ -158,6 +178,10 @@ ATTN_GPT3 = {"gpt3_2_7b": (BATCH, 32, SEQ, 80),
 #: internvl2_26b's attention on phase 12's batch (256 patch tokens + 512
 #: text tokens): (B, H, KV, L, hd), GQA 6:1 at head dim 128
 ATTN_VLM = (BATCH, 48, 8, 256 + SEQ, 128)
+#: gpt3_1_8b_moe's attention in phase 13 (a), 16 heads of 64: over the
+#: whole batch (one process, and each rank of the 1 x 4 mesh) and over
+#: one data shard (each rank of the 2 x 2 mesh)
+ATTN_EP = ((BATCH, 16, SEQ, 64), (BATCH // 2, 16, SEQ, 64))
 #: mamba2_370m: batch x sequence of the forward, prompt and new tokens
 #: of the decode check, and ssd_intra_chunk's (b, nc, cl, h, p, n) there
 #: (B and C from its one group, expanded over the 32 heads)
@@ -464,9 +488,9 @@ def check_kernels(device) -> list:
 
 def check_attention(device) -> dict:
     """Phase 3, B3: flash_attention against its plain version at the main
-    path's shape and at gpt3_2_7b's and gpt3_0_7b's widths (bf16 and f32,
-    the model's strided views), at internvl2_26b's GQA 6:1 shape (bf16,
-    its forward's dtype) and at the reference's sweep and variants
+    path's shape, at gpt3_2_7b's and gpt3_0_7b's widths and at phase 13's
+    gpt3_1_8b_moe shapes (bf16 and f32, the model's strided views), at
+    internvl2_26b's GQA 6:1 shape (bf16, its forward's dtype) and at the reference's sweep and variants
     (tests/test_kernels.py:126-166, at its tolerances), at head dims 64,
     80, 96 and 128. Times the f32 body beside SDPA f32 at the three
     widths, and the bf16 body beside SDPA at internvl2_26b's shape.
@@ -489,6 +513,7 @@ def check_attention(device) -> dict:
     widths = {"path": ATTN, **ATTN_GPT3}
     cases = [(name, (B, H, H, L, L, hd), {})
              for name, (B, H, L, hd) in widths.items()]
+    cases += [("ep", (B, H, H, L, L, hd), {}) for B, H, L, hd in ATTN_EP]
     B, H, KV, L, hd = ATTN_VLM
     cases.append(("internvl2", (B, H, KV, L, L, hd), {}))
     cases += [("sweep", (B, H, KV, L, L, hd), {}) for B, H, KV, L, hd in (
@@ -2219,6 +2244,414 @@ def frontend_families(device, disk_peak: int, kernel_ms: float,
     return launches
 
 
+# --------------------------------------------------------------- phase 13
+#: phase 13's meshes (data x model) of EP_WORLD processes on the one card,
+#: joined by gloo (NCCL refuses two ranks on one GPU), and their time limit
+EP_MESHES = ((1, 4), (2, 2))
+EP_WORLD = 4
+EP_TIMEOUT = 240
+#: gpt3_1_8b_moe's logits on each rank against the single-process
+#: forward: the model-level tolerance of the bf16 kernel path (B3's) and
+#: the f32 one; the aux against the per-data-shard rule
+TOL_EP_BF16, TOL_EP_F32, TOL_EP_AUX = 2e-2, 1e-4, 1e-6
+#: qwen3_moe_235b's MoE layer: its published widths (d 4096, 128 experts
+#: of d_ff 1536, top 8, capacity 1.25) on the main path's batch
+EP_LAYER = "qwen3_moe_235b"
+
+
+def _ep_first_flips(gi_got, gi_want, rows):
+    """Per sequence, the first position whose routing differs between
+    the two forwards in any layer (``SEQ`` where none does): a bf16 near
+    tie can route a token elsewhere, and through attention every later
+    token of its sequence then sees other inputs."""
+    import torch
+    differs = torch.zeros(rows.stop - rows.start, SEQ, dtype=torch.bool,
+                          device=gi_got[0].device)
+    for got, want in zip(gi_got, gi_want):
+        g = got.reshape(-1, SEQ, got.shape[-1])
+        w = want.reshape(BATCH, SEQ, want.shape[-1])[rows]
+        differs |= (g != w).any(-1)
+    pos = torch.arange(SEQ, device=differs.device)
+    return torch.where(differs, pos, SEQ).min(dim=1).values
+
+
+def _ep_shard_aux(cfg, routes, rows_of):
+    """The reference's aux on expert-parallel ranks: each data shard's
+    own load-balance loss (summed over the layers), from the
+    single-process routing, averaged over the shards."""
+    import torch
+    import torch.nn.functional as F
+    E = cfg.moe.n_experts
+    out = []
+    for rows in rows_of:
+        aux = 0.0
+        for probs, gi in routes:
+            p = probs.reshape(BATCH, SEQ, E)[rows].reshape(-1, E)
+            c = F.one_hot(gi.reshape(BATCH, SEQ, -1)[rows], E).float()
+            aux += float(cfg.moe.aux_loss_coef * E * torch.sum(
+                p.mean(0) * c.sum(-2).reshape(-1, E).mean(0)))
+        out.append(aux)
+    return sum(out) / len(out)
+
+
+def _ep_model_rank(rank, device):
+    """Phase 13 (a) on one rank: gpt3_1_8b_moe cut to ``MOE_LAYERS``
+    layers, f32 params from seed 0 (the same on every rank), capacity =
+    n_experts (no drops). Rank 0 runs the single-process forward over
+    the whole batch through B3 (bf16 and f32, routing recorded) and
+    sends its logits and routing to every rank. Then on each mesh of
+    ``EP_MESHES`` this rank's ``local_params`` and data shard go through
+    ``build_model(use_kernels=True, mesh=...)`` — B3's launches counted
+    around it — held against the single-process rows."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_paper_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import init_process_mesh
+    from repro_torch.models import layers as ly
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import build_model, make_batch
+    from repro_torch.sharding.moe_ep import local_params, make_moe_ep
+    from repro_torch.tree import tree_map
+
+    full = get_paper_config("gpt3_1_8b_moe")
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS, moe=dataclasses
+                              .replace(full.moe, capacity_factor=float(
+                                  full.moe.n_experts)))
+    params = build_model(cfg).init(0, device)
+    tokens = make_batch(cfg, BATCH, SEQ, seed=13, device=device)["tokens"]
+
+    def fa(q, k, v, cap=None):
+        return ops.flash_attention(q, k, v, causal=True, cap=cap)
+
+    def recording(routes, inner=None):
+        def moe(p, h, c):
+            r = ly.moe_route(p, h, c)
+            routes.append((r.probs, r.gate_i))
+            return inner(p, h, c) if inner else ly.moe_apply(p, h, c)
+        return moe
+
+    def cast(tree, dt):
+        return tree if dt == torch.float32 else tree_map(
+            lambda t: t.to(dt), tree)
+
+    dtypes = (torch.bfloat16, torch.float32)
+    single = {}
+    with torch.inference_mode():
+        # the oracle: once, on rank 0; its logits go out as f32 (exact
+        # for bf16), the routing as it is
+        flat = {}
+        if rank == 0:
+            for dt in dtypes:
+                routes = []
+                logits, _ = transformer.forward(
+                    cast(params, dt), cfg, {"tokens": tokens}, dtype=dt,
+                    attn_kernel=fa, moe_kernel=recording(routes))
+                flat[dt] = [t.contiguous() for t in [logits.float()] + [
+                    t for r in routes for t in r]]
+        box = [{dt: [(tuple(t.shape), t.dtype) for t in ts]
+                for dt, ts in flat.items()}]
+        dist.broadcast_object_list(box, src=0)
+        for dt in dtypes:
+            ts = flat.get(dt) or [torch.empty(shape, dtype=t, device=device)
+                                  for shape, t in box[0][dt]]
+            for t in ts:
+                dist.broadcast(t, src=0)
+            single[dt] = (ts[0], list(zip(ts[1::2], ts[2::2])))
+        del flat
+    out = {"launches": 0, "meshes": {}}
+    for shape in EP_MESHES:
+        mesh = init_process_mesh(shape, ("data", "model"), backend="gloo",
+                                 device=device)
+        b_loc = BATCH // shape[0]
+        d = mesh.coords["data"]
+        rows = slice(d * b_loc, (d + 1) * b_loc)
+        local = local_params(params, mesh)
+        model_rows = {}
+        for dt in dtypes:
+            model = build_model(cfg, dtype=dt, use_kernels=True, mesh=mesh)
+            p = cast(local, dt)
+            with torch.inference_mode():
+                torch.cuda.synchronize()
+                _zero_counts()     # just before the expert-parallel path
+                t0 = time.perf_counter()
+                logits, aux = model.forward(p, {"tokens": tokens[rows]})
+                torch.cuda.synchronize()
+                first = time.perf_counter() - t0
+                launches = ops.flash_attention.launches
+                t0 = time.perf_counter()
+                model.forward(p, {"tokens": tokens[rows]})
+                torch.cuda.synchronize()
+                warm = time.perf_counter() - t0
+                routes = []
+                transformer.forward(p, cfg, {"tokens": tokens[rows]},
+                                    dtype=dt, attn_kernel=fa,
+                                    moe_kernel=recording(routes,
+                                                         make_moe_ep(mesh)))
+            if launches != cfg.n_layers:
+                fail(f"rank {rank} mesh {shape}: the expert-parallel "
+                     f"forward launched B3 {launches} times; expected "
+                     f"{cfg.n_layers}")
+            out["launches"] += launches
+            want, want_routes = single[dt]
+            first_flip = _ep_first_flips([g for _, g in routes],
+                                         [g for _, g in want_routes], rows)
+            keep = (torch.arange(SEQ, device=device)[None, :]
+                    < first_flip[:, None])
+            f32 = dt == torch.float32
+            tol = TOL_EP_F32 if f32 else TOL_EP_BF16
+            shares = []
+            err = _close(f"rank {rank} mesh {shape} {dt} logits",
+                         logits[keep], want[rows][keep], tol, quiet=True,
+                         shares=shares)
+            want_aux = _ep_shard_aux(
+                cfg, want_routes, [slice(i * b_loc, (i + 1) * b_loc)
+                                   for i in range(shape[0])])
+            aux_tol = TOL_EP_AUX if f32 else TOL_LOSS_BF16 * abs(want_aux)
+            if abs(float(aux) - want_aux) > aux_tol:
+                fail(f"rank {rank} mesh {shape} {dt}: aux {float(aux)} vs "
+                     f"the per-data-shard rule {want_aux} beyond {aux_tol}")
+            model_rows[str(dt).split(".")[-1]] = {
+                "max_abs_err": err, "share": shares[0],
+                "tokens_held": int(keep.sum()),
+                "tokens_after_a_flip": int((~keep).sum()),
+                "aux": float(aux), "aux_rule": want_aux,
+                "first_s": first, "warm_s": warm, "launches": launches}
+            del logits, model
+        out["meshes"][f"{shape[0]}x{shape[1]}"] = {
+            "coords": mesh.coords, **model_rows}
+        del local
+    return out
+
+
+def _ep_layer_rank(rank, device):
+    """Phase 13 (b) on one rank of the 1 x 4 mesh: qwen3_moe_235b's MoE
+    layer at its published widths. The ranks make the full layer from
+    seed 0 in turn (one full layer on the card at a time) and keep their
+    32 experts; rank 0 first runs and times the single-process sorted
+    and einsum layers and sends the sorted output (the same capacity and
+    drop policy) to every rank. Each rank's expert-parallel output is
+    held against it within 1e-4."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_process_mesh
+    from repro_torch.models import layers as ly
+    from repro_torch.sharding.moe_ep import EXPERT_SPEC, make_moe_ep
+    from repro_torch.sharding.specs import local_slice
+
+    cfg = get_config(EP_LAYER)
+    mesh = init_process_mesh((1, EP_WORLD), ("data", "model"),
+                             backend="gloo", device=device)
+    gen = torch.Generator(device=device).manual_seed(21)
+    x = torch.randn((BATCH, SEQ, cfg.d_model), generator=gen, device=device)
+    out = {}
+
+    def timed(fn, n=3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return res, first, (time.perf_counter() - t0) / n
+
+    ref = torch.empty_like(x)
+    with torch.inference_mode():
+        for r in range(EP_WORLD):
+            if r == rank:
+                full = ly.moe_init(cfg, torch.Generator(device=device)
+                                   .manual_seed(0), device)
+                out["full_layer_bytes"] = sum(
+                    t.numel() * t.element_size() for t in full.values())
+                if rank == 0:
+                    (ref, _), out["sorted_first_s"], out["sorted_s"] = \
+                        timed(lambda: ly.moe_apply_sorted(full, x, cfg))
+                    (ein, _), out["einsum_first_s"], out["einsum_s"] = \
+                        timed(lambda: ly.moe_apply(full, x, cfg), n=1)
+                    out["einsum_vs_sorted_max_abs"] = float(
+                        (ein - ref).abs().max())
+                    del ein
+                mine = {k: local_slice(v, EXPERT_SPEC, mesh)
+                        .clone() if k in ("wi", "wg", "wo") else v
+                        for k, v in full.items()}
+                del full
+                torch.cuda.empty_cache()
+            dist.barrier()
+        dist.broadcast(ref, src=0)
+        kernel = make_moe_ep(mesh)
+        dist.barrier()
+        (got, aux), out["ep_first_s"], out["ep_s"] = timed(
+            lambda: kernel(mine, x, cfg))
+        r = ly.moe_route(mine, x, cfg)
+        counts = torch.bincount(r.gate_i.reshape(-1),
+                                minlength=cfg.moe.n_experts)
+        out["dropped"] = int((counts - r.C).clamp(min=0).sum())
+        out["capacity"] = r.C
+    shares = []
+    out["max_abs_err"] = _close(f"rank {rank} {EP_LAYER} layer", got, ref,
+                                TOL_EP_F32, quiet=True, shares=shares)
+    out["share"] = shares[0]
+    out["local_expert_bytes"] = sum(
+        mine[k].numel() * mine[k].element_size() for k in ("wi", "wg", "wo"))
+    return out
+
+
+def _ep_rank(rank, device: str):
+    """One of phase 13's ``EP_WORLD`` processes, all on the one card
+    ``device``: (a), then (b). Returns its numbers."""
+    import gc
+
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device(device)
+    t0 = time.perf_counter()
+    out = {"a": _ep_model_rank(rank, device)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["b"] = _ep_layer_rank(rank, device)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _op_cost_on_card(device, times):
+    """Phase 13 (c), second half: ``op_cost`` around one real bf16 forward
+    of (a)'s model on the card (no kernel: every product is an aten op)
+    and around the same forward on meta tensors; the two flop counts
+    must be equal. A warm forward outside the counter gives the achieved
+    rate."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_paper_config
+    from repro_torch.launch.op_cost import OpCost
+    from repro_torch.models.registry import build_model, make_batch
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(get_paper_config("gpt3_1_8b_moe"),
+                              n_layers=MOE_LAYERS)
+    model = build_model(cfg)
+    params = tree_map(lambda t: t.to(torch.bfloat16),
+                      model.init(0, device))
+    batch = make_batch(cfg, BATCH, SEQ, seed=13, device=device)
+    meta = tree_map(lambda t: torch.empty_like(t, device="meta"), params)
+    meta_batch = {k: torch.empty_like(v, device="meta")
+                  for k, v in batch.items()}
+    with torch.inference_mode():
+        with OpCost() as on_card:
+            model.forward(params, batch)
+            torch.cuda.synchronize()
+        with OpCost() as on_meta:
+            model.forward(meta, meta_batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.forward(params, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    card, dry = on_card.aggregate(), on_meta.aggregate()
+    if card["flops"] != dry["flops"] or not card["flops"] > 0:
+        fail(f"op_cost: {card['flops']} flops counted on the card, "
+             f"{dry['flops']} on meta for the same forward")
+    names = sorted(set(on_card.by_op) | set(on_meta.by_op))
+    differ = {n: [on_card.by_op.get(n, 0), on_meta.by_op.get(n, 0)]
+              for n in names
+              if on_card.by_op.get(n, 0) != on_meta.by_op.get(n, 0)}
+    print(f"  op_cost bytes of the same forward that differ between the "
+          f"card and meta, by aten op [card, meta]: {json.dumps(differ)}",
+          flush=True)
+    times["op_cost bytes card vs meta by op"] = differ
+    rate = card["flops"] / wall / 1e12
+    print(f"  op_cost of one bf16 forward of {cfg.name} ({MOE_LAYERS} "
+          f"layers, {BATCH} x {SEQ}, einsum dispatch, no kernel): "
+          f"{card['flops']:.0f} flops on the card = {dry['flops']:.0f} on "
+          f"meta; bytes {card['bytes']:.0f} vs {dry['bytes']:.0f}; warm "
+          f"wall {wall:.4f} s: {rate:.1f} TFLOP/s against the 989 TFLOP/s "
+          f"bf16 peak", flush=True)
+    times["op_cost forward flops"] = card["flops"]
+    times["op_cost forward warm s"] = wall
+    times["op_cost forward TFLOP/s"] = rate
+
+
+def expert_parallel(device, times: dict) -> int:
+    """Phase 13: expert parallelism across ``EP_WORLD`` processes on the
+    card and the dry run. (a) gpt3_1_8b_moe through
+    ``build_model(mesh=...)`` on the meshes of ``EP_MESHES``; (b)
+    qwen3_moe_235b's MoE layer at its published widths on 1 x 4; (c)
+    ``dryrun.lower_one("gpt3_1_8b_moe", "train_4k")`` with and without
+    ``shard_map_moe`` on the 16 x 16 mesh, and ``op_cost`` on the card
+    against meta. A rank that fails, exits non-zero or outlasts
+    ``EP_TIMEOUT`` fails the phase. Returns B3's launches on (a)'s
+    expert-parallel forwards, summed over the ranks."""
+    import gc
+
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import run_ranks
+
+    print(f"phase 13: expert parallelism across {EP_WORLD} processes on "
+          f"the card (gloo) and the dry run", flush=True)
+    t0 = time.perf_counter()
+    try:
+        ranks = run_ranks(_ep_rank, EP_WORLD, (str(device),),
+                          backend="gloo", timeout=EP_TIMEOUT)
+    except RuntimeError as e:
+        fail(f"phase 13: {e}")
+    times["ranks s"] = time.perf_counter() - t0
+    launches = 0
+    for rank, r in enumerate(ranks):
+        launches += r["a"]["launches"]
+        for mesh, m in r["a"]["meshes"].items():
+            for dt in ("bfloat16", "float32"):
+                e = m[dt]
+                print(f"  (a) rank {rank} mesh {mesh} {m['coords']} {dt}: "
+                      f"logits max_abs_err {e['max_abs_err']:.3g} (share "
+                      f"{e['share']:.3f}) over {e['tokens_held']} tokens, "
+                      f"{e['tokens_after_a_flip']} after a routing flip "
+                      f"left out; aux {e['aux']:.6f} vs the per-shard rule"
+                      f" {e['aux_rule']:.6f}; forward first "
+                      f"{e['first_s']:.4f} s, warm {e['warm_s']:.4f} s; "
+                      f"{e['launches']} B3 launches", flush=True)
+        b = r["b"]
+        print(f"  (b) rank {rank}: {EP_LAYER} layer max_abs_err "
+              f"{b['max_abs_err']:.3g} (share {b['share']:.3f}), "
+              f"{b['dropped']} (token, k) dropped at capacity "
+              f"{b['capacity']}; EP first {b['ep_first_s']:.4f} s, warm "
+              f"{b['ep_s']:.4f} s; {b['local_expert_bytes']} B of experts "
+              f"(full layer {b['full_layer_bytes']} B); rank seconds "
+              f"{r['seconds']:.1f}", flush=True)
+    b0 = ranks[0]["b"]
+    print(f"  (b) one process: sorted first {b0['sorted_first_s']:.4f} s, "
+          f"warm {b0['sorted_s']:.4f} s; einsum first "
+          f"{b0['einsum_first_s']:.4f} s, warm {b0['einsum_s']:.4f} s "
+          f"(its drops by arrival order: {b0['einsum_vs_sorted_max_abs']:.3g}"
+          f" from sorted); expert-parallel on 4 ranks sharing the card, "
+          f"warm {max(r['b']['ep_s'] for r in ranks):.4f} s", flush=True)
+    times.update({"ep layer warm s": max(r["b"]["ep_s"] for r in ranks),
+                  "sorted layer warm s": b0["sorted_s"],
+                  "einsum layer warm s": b0["einsum_s"]})
+    gc.collect()
+    torch.cuda.empty_cache()
+    for ep in (False, True):
+        t1 = time.perf_counter()
+        r = dryrun.lower_one("gpt3_1_8b_moe", "train_4k", verbose=False,
+                             shard_map_moe=ep)
+        keys = ("flops_per_device", "bytes_per_device",
+                "collective_total_per_device", "t_compute_s", "t_memory_upper_s",
+                "t_collective_s", "useful_flops_ratio", "dominant")
+        print(f"  (c) dry run gpt3_1_8b_moe train_4k on 16 x 16, "
+              f"shard_map_moe={ep}, in {time.perf_counter() - t1:.2f} s: "
+              f"{json.dumps({k: r[k] for k in keys})}, argument bytes per "
+              f"device {r['memory']['argument_size_bytes']}", flush=True)
+        times[f"dry run shard_map_moe={ep}"] = {k: r[k] for k in keys}
+    _op_cost_on_card(device, times)
+    return launches
+
+
 def sass_check():
     """Phase 2: the instructions of each flash_attention body in the SASS
     that ``cuobjdump`` reads from the built library. Fails unless every
@@ -2361,6 +2794,10 @@ def main():
         device, disk_peak, entries[2]["internvl2_ms"], times)
     lap("12")
     print(f"phase 12 times: {json.dumps(times)}", flush=True)
+    times = {}
+    launches["flash_attention"] += expert_parallel(device, times)
+    lap("13")
+    print(f"phase 13 times: {json.dumps(times)}", flush=True)
     for e in entries:
         e["launches"] = launches[e["name"]]
     print(f"seconds per phase: {json.dumps(laps)}", flush=True)

@@ -20,8 +20,10 @@ here, as in the reference.
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as ly
 
@@ -125,14 +127,20 @@ def _dec_block(cfg, x, lp, enc_out, pos, cache_k=None, cache_v=None,
 
 
 def _decode_layers(params, cfg, x, enc_out, pos, cache=None,
-                   cache_pos=None):
-    """Every decoder block in turn; returns x after the final norm."""
+                   cache_pos=None, remat=False):
+    """Every decoder block in turn; returns x after the final norm.
+    ``remat``: each block's activations recomputed in the backward
+    (``jax.checkpoint`` at the reference's encdec.py:122)."""
     for i in range(cfg.n_layers):
         lp = ly.layer_slice(params["dec_layers"], i)
         kv = {} if cache is None else {"cache_k": cache["k"][i],
                                        "cache_v": cache["v"][i],
                                        "cache_pos": cache_pos}
-        x = _dec_block(cfg, x, lp, enc_out, pos, **kv)
+        if remat:
+            x = checkpoint(partial(_dec_block, cfg, **kv), x, lp, enc_out,
+                           pos, use_reentrant=False)
+        else:
+            x = _dec_block(cfg, x, lp, enc_out, pos, **kv)
     return ly.rmsnorm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -140,14 +148,16 @@ def _unembed(params, x):
     return x @ params["embed"].T.to(x.dtype)
 
 
-def forward(params, cfg, batch, *, dtype=torch.bfloat16, moe_groups=1):
+def forward(params, cfg, batch, *, dtype=torch.bfloat16, moe_groups=1,
+            remat=False):
     """Teacher-forced forward over ``batch["tokens"]`` given
     ``batch["audio_frames"]``. Returns (logits, zero aux loss), the
-    unembedding tied to the embedding."""
+    unembedding tied to the embedding. ``remat`` applies to the decoder
+    blocks only, as in the reference."""
     enc_out = encode(params, cfg, batch["audio_frames"].to(dtype))
     x = params["embed"].to(dtype)[batch["tokens"]]
     pos = torch.arange(x.shape[1], device=x.device)
-    x = _decode_layers(params, cfg, x, enc_out, pos)
+    x = _decode_layers(params, cfg, x, enc_out, pos, remat=remat)
     return (_unembed(params, x),
             torch.zeros((), dtype=torch.float32, device=x.device))
 

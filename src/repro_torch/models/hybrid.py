@@ -111,9 +111,9 @@ def _logits(params, x, cfg):
 
 
 def forward(params, cfg, batch, *, dtype=torch.bfloat16, moe_groups=1,
-            ssd_kernel=None):
+            remat=False, ssd_kernel=None):
     """Teacher-forced full-sequence forward. Returns (logits, aux_loss).
-    ``moe_groups`` is unused, as in the reference."""
+    ``moe_groups`` and ``remat`` are unused, as in the reference."""
     x = params["embed"].to(dtype)[batch["tokens"]]
     x, _ = _run(params, cfg, x, None, None, 0, ssd_kernel)
     return _logits(params, x, cfg), torch.zeros((), dtype=torch.float32,

@@ -47,9 +47,9 @@ def _logits(params, cfg, x):
 
 
 def forward(params, cfg, batch, *, dtype=torch.bfloat16, moe_groups=1,
-            ssd_kernel=None):
+            remat=False, ssd_kernel=None):
     """Teacher-forced full-sequence forward. Returns (logits, aux_loss).
-    ``moe_groups`` is unused, as in the reference."""
+    ``moe_groups`` and ``remat`` are unused, as in the reference."""
     x = params["embed"].to(dtype)[batch["tokens"]]
     x, _ = _layers(params, cfg, x, None, ssd_kernel)
     return _logits(params, cfg, x), torch.zeros((), dtype=torch.float32,

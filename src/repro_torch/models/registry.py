@@ -70,7 +70,8 @@ class Model:
 
 
 def build_model(cfg, *, dtype=torch.bfloat16, use_kernels: bool = False,
-                ce_chunk: int | None = None, moe_groups: int = 1) -> Model:
+                ce_chunk: int | None = None, moe_groups: int = 1,
+                remat: bool = False, mesh=None) -> Model:
     """``dtype`` is the compute dtype weights are cast to at use;
     ``ce_chunk`` the loss's sequence chunk; ``moe_groups`` the MoE
     router's token groups, as in the reference.
@@ -81,9 +82,20 @@ def build_model(cfg, *, dtype=torch.bfloat16, use_kernels: bool = False,
     and hybrid families, ``flash_attention`` for dense, moe and vlm GQA
     without a window.
     Prefill and decode run no kernel, nor does encdec. On CPU tensors
-    the kernels' plain versions run."""
+    the kernels' plain versions run.
+
+    ``remat``: ``forward`` and ``loss`` recompute each layer's
+    activations in the backward (the dense, moe, vlm stacks and encdec's
+    decoder; the ssm and hybrid families take the flag and ignore it, as
+    the reference's do). ``mesh``: MoE layers run expert-parallel
+    (``sharding/moe_ep.py``): a ``ProcessMesh`` across its ranks, each
+    holding its ``local_params``; a ``Mesh`` description on meta tensors
+    only (the dry run)."""
     fam = _FAMILIES[cfg.arch_type]
     kern = {}
+    if mesh is not None and cfg.moe is not None:
+        from repro_torch.sharding.moe_ep import make_moe_ep
+        kern["moe_kernel"] = make_moe_ep(mesh)
     if use_kernels and cfg.arch_type in ("ssm", "hybrid"):
         from repro_torch.kernels import ops
         kern["ssd_kernel"] = ops.ssd_intra_chunk
@@ -103,7 +115,7 @@ def build_model(cfg, *, dtype=torch.bfloat16, use_kernels: bool = False,
 
     def forward(params, batch):
         return fam.forward(params, cfg, batch, dtype=dtype,
-                           moe_groups=moe_groups, **kern)
+                           moe_groups=moe_groups, remat=remat, **kern)
 
     def loss(params, batch):
         logits, aux = forward(params, batch)

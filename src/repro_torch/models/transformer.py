@@ -13,12 +13,18 @@ cache IN PLACE and return it (the reference returns a new cache; its
 serving loop donates the old one, so XLA does the same). The
 ``attn_kernel`` hook takes the flash-attention kernel
 (``build_model(use_kernels=True)``); ``moe_kernel(p, h, cfg)`` replaces
-the MoE layer, as in the reference.
+the MoE layer, as in the reference (``sharding/moe_ep.py`` passes its
+expert-parallel layer). ``forward(remat=True)`` recomputes each block in
+the backward (``torch.utils.checkpoint``), where the reference applies
+``jax.checkpoint`` to its scan body (transformer.py:165).
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as ly
 
@@ -124,9 +130,11 @@ def _block(cfg, x, lp, pos, *, is_glob=True, cache_k=None, cache_v=None,
     return x + out, aux
 
 
-def _layers(params, cfg, x, pos, cache=None, cache_pos=None, **kw):
+def _layers(params, cfg, x, pos, cache=None, cache_pos=None, remat=False,
+            **kw):
     """Every block in turn; returns (x after the final norm, summed aux).
-    ``cache``: the stacked k/v or latent cache (not the pair layout)."""
+    ``cache``: the stacked k/v or latent cache (not the pair layout).
+    ``remat``: each block's activations recomputed in the backward."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     glob = _is_global(cfg)
     for i in range(cfg.n_layers):
@@ -136,7 +144,11 @@ def _layers(params, cfg, x, pos, cache=None, cache_pos=None, **kw):
         elif cache is not None:
             kw.update(cache_k=cache["k"][i], cache_v=cache["v"][i],
                       cache_pos=cache_pos)
-        x, a = _block(cfg, x, lp, pos, is_glob=glob[i], **kw)
+        if remat:
+            x, a = checkpoint(partial(_block, cfg, is_glob=glob[i], **kw),
+                              x, lp, pos, use_reentrant=False)
+        else:
+            x, a = _block(cfg, x, lp, pos, is_glob=glob[i], **kw)
         if a is not None:
             aux = aux + a
     return ly.rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
@@ -177,14 +189,14 @@ def _unembed(params, cfg, x):
 
 
 def forward(params, cfg, batch, *, dtype=torch.bfloat16, moe_groups=1,
-            attn_kernel=None, moe_kernel=None):
+            remat=False, attn_kernel=None, moe_kernel=None):
     """Teacher-forced full-sequence forward. Returns (logits, aux_loss),
     the aux loss summed over the layers. A vision prefix is attended
     causally with the tokens, as in the reference; its logits are
     returned too."""
     x, _ = embed_inputs(params, cfg, batch, dtype)
     pos = torch.arange(x.shape[1], device=x.device)
-    x, aux = _layers(params, cfg, x, pos, moe_groups=moe_groups,
+    x, aux = _layers(params, cfg, x, pos, remat=remat, moe_groups=moe_groups,
                      attn_kernel=attn_kernel, moe_kernel=moe_kernel)
     return _unembed(params, cfg, x), aux
 

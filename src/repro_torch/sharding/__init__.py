@@ -1,3 +1,4 @@
-"""Sharding rules of the port. Only the byte math of the ZeRO-1 restore
-ownership is here; the reference's mesh and ``PartitionSpec`` helpers
-are XLA-only (ROADMAP.md queue A item 7)."""
+"""Sharding of the port: the spec rules of the reference's mesh
+(``specs``: TP on ``model``, DP and ZeRO-1 over ``data``, each leaf's
+shard shape and slice, ZeRO-1 ownership of a checkpoint's byte stream)
+and expert parallelism across processes (``moe_ep``)."""

@@ -3,6 +3,7 @@
 card or without the rest of the repository. Checked in subprocesses:
 this test process has JAX loaded by conftest."""
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -141,3 +142,45 @@ def test_chip_smoke_fails_alone(tmp_path):
                env_extra={"PYTHONPATH": ""})
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+PARALLEL_MODULES = ["repro_torch.sharding.moe_ep",
+                    "repro_torch.sharding.specs",
+                    "repro_torch.launch.mesh", "repro_torch.launch.inputs",
+                    "repro_torch.launch.op_cost",
+                    "repro_torch.launch.dryrun",
+                    "repro_torch.models.registry"]
+
+
+def test_parallel_and_dryrun_modules_import_no_jax():
+    """Expert parallelism, the mesh helpers and the dry run exist and
+    import nothing of JAX, the JAX package or ml_dtypes; the dry run's
+    rates are the H100's (no TPU constant in the port)."""
+    code = f"""
+import importlib, sys
+for name in {PARALLEL_MODULES!r}:
+    importlib.import_module(name)
+from repro_torch.sharding.moe_ep import local_params, make_moe_ep
+from repro_torch.sharding.specs import (batch_specs, cache_specs, dp_axes,
+    local_slice, param_spec, param_specs, replicated_specs, shard_shape,
+    zero1_specs)
+from repro_torch.launch.mesh import (Mesh, init_process_mesh,
+    make_cpu_mesh, make_production_mesh, run_ranks)
+from repro_torch.launch.inputs import batch_structs, input_specs
+from repro_torch.launch.op_cost import OpCost, aggregate
+from repro_torch.launch import dryrun
+assert (dryrun.PEAK_FLOPS, dryrun.HBM_BW, dryrun.LINK_BW) == \\
+    (989e12, 3.35e12, 450e9)
+assert make_production_mesh(multi_pod=True).size == 512
+bad = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r})
+assert not bad, bad
+print("ok")
+"""
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+    tpu = re.compile(r"(?<![\d.])(197e12|819e9|50e9)\b")
+    hits = [(p.name, m.group(0))
+            for p in (ROOT / "src" / "repro_torch").rglob("*.py")
+            for m in tpu.finditer(p.read_text())]
+    assert not hits, hits
