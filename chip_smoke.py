@@ -127,9 +127,23 @@ Phases, each of which exits non-zero on failure:
    ``repro_torch.launch.dryrun.lower_one("gpt3_1_8b_moe", "train_4k")``
    with and without ``shard_map_moe`` on the 16 x 16 mesh (meta
    tensors), and ``op_cost`` around one real bf16 forward of (a)'s
-   model on the card, its flops equal to the same forward's on meta,
-   with the achieved rate. A rank that fails, exits non-zero or does
-   not finish in time fails the phase.
+   model on the card, its flops and its bytes equal to the same
+   forward's on meta (``F.one_hot`` counted as one op), with the
+   achieved rate. A rank that
+   fails, exits non-zero or does not finish in time fails the phase;
+14. the paper's figures (``repro_torch.benchmarks.run``, in this process,
+   on ``cuda``, at their quick sizes; fig11 trains ``gpt3_0_7b`` at its
+   published widths cut to 1 of 24 layers and 4 steps a cell,
+   perf_writer at 128 MiB): B2 on beyond_quant's leaves and B1 on
+   fig_snapshot's dirty blob first held against their plain versions;
+   every figure's CSV rows and wall time printed; fig_delta's,
+   fig_snapshot's and fig10's restores bit-exact; B1 launched once per
+   delta save of fig_snapshot's device-dirty chains and B2 once per
+   leaf of beyond_quant's int8 save (added to the kernels line), and
+   the amax of that save equal to the plain version's; no figure
+   holding more on the disk and in /dev/shm at once than min(75 % of
+   the free disk, 90 % of phase 4's peak). The figures' verdicts are
+   printed as measurements, never held.
 
 The last three lines of standard output are one JSON object of
 per-kernel numbers, the card's name and power limit, and one JSON
@@ -140,6 +154,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -2562,9 +2577,16 @@ def _op_cost_on_card(device, times):
               for n in names
               if on_card.by_op.get(n, 0) != on_meta.by_op.get(n, 0)}
     print(f"  op_cost bytes of the same forward that differ between the "
-          f"card and meta, by aten op [card, meta]: {json.dumps(differ)}",
+          f"card and meta, by aten op [card, meta]: {json.dumps(differ)}; "
+          f"one_hot counted whole: {on_card.by_op.get('one_hot', 0)} B on "
+          f"the card, {on_meta.by_op.get('one_hot', 0)} B on meta",
           flush=True)
     times["op_cost bytes card vs meta by op"] = differ
+    # F.one_hot is one op of its own (op_cost.WHOLE), not ATen's
+    # per-device decomposition, so the bytes agree too
+    if card["bytes"] != dry["bytes"] or not card["bytes"] > 0:
+        fail(f"op_cost: {card['bytes']:.0f} bytes counted on the card, "
+             f"{dry['bytes']:.0f} on meta for the same forward")
     rate = card["flops"] / wall / 1e12
     print(f"  op_cost of one bf16 forward of {cfg.name} ({MOE_LAYERS} "
           f"layers, {BATCH} x {SEQ}, einsum dispatch, no kernel): "
@@ -2650,6 +2672,210 @@ def expert_parallel(device, times: dict) -> int:
         times[f"dry run shard_map_moe={ep}"] = {k: r[k] for k in keys}
     _op_cost_on_card(device, times)
     return launches
+
+
+# --------------------------------------------------------------- phase 14
+class _DiskPeak:
+    """The most the filesystems under ``paths`` held together above
+    their levels at start, sampled every ``period`` seconds on a thread
+    (statvfs only; two paths on one filesystem count once)."""
+
+    def __init__(self, paths, period: float = 0.2):
+        import threading
+        by_dev = {os.stat(p).st_dev: p for p in paths if os.path.isdir(p)}
+        self.paths, self.period = list(by_dev.values()), period
+        self.start = self._used()
+        self.peak = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._watch, daemon=True)
+        self._thread.start()
+
+    def _used(self) -> int:
+        return sum(shutil.disk_usage(p).used for p in self.paths)
+
+    def _watch(self):
+        while not self._stop.wait(self.period):
+            self.sample()
+
+    def sample(self):
+        self.peak = max(self.peak, self._used() - self.start)
+
+    def stop(self) -> int:
+        self._stop.set()
+        self._thread.join()
+        self.sample()
+        return self.peak
+
+
+def _figure_kernels(device) -> dict:
+    """B2 and B1 at the shapes phase 14's figures give them, held against
+    their plain versions before the figures run (these launches stay out
+    of the counts): B2 on beyond_quant's four leaves (bf16 and f32, at
+    the quantizer's block with a ragged tail), B1 on fig_snapshot's f32
+    dirty blob at the device-dirty block, against its image before a
+    step that touches a tenth of its pages. Returns the largest error by
+    kernel name."""
+    import numpy as np
+    import torch
+    from repro_torch.benchmarks import beyond_quant, fig_snapshot
+    from repro_torch.core import quant
+    from repro_torch.core.checkpointer import FastPersistConfig
+    from repro_torch.kernels import ckpt_pack as cp
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ckpt_pack_dirty_plain, ckpt_pack_plain
+    errs = {}
+    for name, leaf in beyond_quant.synth_moments(beyond_quant.QUICK_MB,
+                                                 device).items():
+        x2d = ops._to_blocks(leaf.reshape(-1), quant.BLOCK)
+        got = cp.ckpt_pack_blocks(x2d, out_dtype=torch.bfloat16)
+        want = ckpt_pack_plain(x2d, out_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        err = _compare(f"ckpt_pack_blocks beyond_quant {name}", got, want,
+                       bits=False)
+        errs["ckpt_pack_blocks"] = max(errs.get("ckpt_pack_blocks", 0.0),
+                                       err)
+        print(f"  ok ckpt_pack_blocks on beyond_quant's {name} "
+              f"{leaf.dtype} ({leaf.numel()} elements, {x2d.shape[0]} "
+              f"blocks of {quant.BLOCK}): max_abs_err {err}", flush=True)
+    rng = np.random.default_rng(23)
+    mb = fig_snapshot.QUICK_DIRTY_MB
+    w = torch.from_numpy(rng.standard_normal(mb * (1 << 20) // 4)
+                         .astype(np.float32)).to(device)
+    block = FastPersistConfig().dirty_block // w.element_size()
+    prev2d = ops.pack_blocks(w, block=block)
+    fig_snapshot._touch_pages(w, rng, 0.1)
+    x2d = ops._to_blocks(w, block)
+    got = cp.ckpt_pack_dirty_blocks(x2d, prev2d, out_dtype=w.dtype)
+    want = ckpt_pack_dirty_plain(x2d, prev2d, out_dtype=w.dtype)
+    torch.cuda.synchronize()
+    errs["ckpt_pack_dirty_blocks"] = _compare(
+        "ckpt_pack_dirty_blocks fig_snapshot", got, want, bits=True)
+    print(f"  ok ckpt_pack_dirty_blocks on fig_snapshot's {mb} MiB f32 "
+          f"blob ({x2d.shape[0]} blocks of {block}, {int(got[2].sum())} "
+          f"dirty): max_abs_err {errs['ckpt_pack_dirty_blocks']}",
+          flush=True)
+    return errs
+
+
+def _hold_quant_amax(bq: dict, device):
+    """Fail unless every block amax beyond_quant's int8 save took from B2
+    on the card equals the plain version's on the same leaves (drawn
+    again from the figure's seed)."""
+    import numpy as np
+    import torch
+    from repro_torch.benchmarks import beyond_quant
+    from repro_torch.core import quant
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ckpt_pack_plain
+    from repro_torch.tree import flatten
+    used = bq[True].device_amax
+    leaves = dict(flatten(beyond_quant.synth_moments(beyond_quant.QUICK_MB,
+                                                     device)))
+    if sorted(used) != sorted(leaves):
+        fail(f"phase 14: beyond_quant's int8 save took B2's amax for "
+             f"{sorted(used)}; expected {sorted(leaves)}")
+    for name, leaf in leaves.items():
+        want = ckpt_pack_plain(ops._to_blocks(leaf.reshape(-1), quant.BLOCK),
+                               out_dtype=torch.bfloat16)[1].cpu().numpy()
+        if not np.array_equal(np.asarray(used[name]), want):
+            fail(f"phase 14: beyond_quant's int8 save of {name} took a "
+                 f"block amax that differs from the plain version's")
+    print(f"  ok beyond_quant's int8 save: the block amax of "
+          f"{sorted(leaves)} equal the plain version's", flush=True)
+
+
+def paper_figures(device, disk_peak: int, times: dict) -> dict:
+    """Phase 14: the paper's figures through ``repro_torch.benchmarks.run``
+    in this process on the card at their quick sizes, with
+    ``FASTPERSIST_BENCH_DIR`` and the working directory in a temporary
+    directory. Every figure must run; the bit-exact checks of fig_delta,
+    fig_snapshot and fig10 must hold; B1 must launch once per delta save
+    of fig_snapshot's device-dirty chains and B2 once per leaf of
+    beyond_quant's int8 save; no figure may hold more on the disk at once
+    than ``_disk_budget(disk_peak)``. The figures' verdicts are printed,
+    never held. B1 and B2 are first held against their plain versions
+    at the figures' shapes, and the amax of beyond_quant's int8 save
+    against the plain ones. Returns (the phase's launches by kernel
+    name, the largest error of those checks by kernel name)."""
+
+    from repro_torch.benchmarks import run as bench
+    from repro_torch.kernels import ckpt_pack as cp
+
+    budget = _disk_budget(disk_peak)
+    print(f"phase 14: the paper's figures (repro_torch.benchmarks, quick "
+          f"sizes) on the card; disk budget {budget:.0f} B", flush=True)
+    errs = _figure_kernels(device)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_figures_")
+    cwd, env = os.getcwd(), os.environ.get("FASTPERSIST_BENCH_DIR")
+    os.environ["FASTPERSIST_BENCH_DIR"] = os.path.join(tmp, "bench")
+    os.chdir(tmp)
+    held = {}
+    results, seconds, failed = {}, {}, []
+    try:
+        _zero_counts()             # just before the figures
+        for name, _module in bench.FIGURES:
+            watch = _DiskPeak([tmp, PEER_ROOT])
+            r, sec, bad = bench.run_all(quick=True, device=device,
+                                        only=[name])
+            held[name] = watch.stop()
+            results.update(r)
+            seconds.update(sec)
+            failed += bad
+        launches = {"ckpt_pack_dirty_blocks":
+                    cp.ckpt_pack_dirty_blocks.launches,
+                    "ckpt_pack_blocks": cp.ckpt_pack_blocks.launches}
+    finally:
+        os.chdir(cwd)
+        if env is None:
+            os.environ.pop("FASTPERSIST_BENCH_DIR", None)
+        else:
+            os.environ["FASTPERSIST_BENCH_DIR"] = env
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  seconds per figure: "
+          f"{json.dumps({k: round(v, 1) for k, v in seconds.items()})}",
+          flush=True)
+    print(f"  most held on the disk at once, bytes per figure: "
+          f"{json.dumps(held)}", flush=True)
+    times["figure s"] = {k: round(v, 1) for k, v in seconds.items()}
+    times["figure disk bytes held"] = held
+    if failed:
+        fail(f"phase 14: figures {failed} raised")
+    over = {k: v for k, v in held.items() if v > budget}
+    if over:
+        fail(f"phase 14: {over} held more than the disk budget "
+             f"{budget:.0f} B")
+    delta, snap = results["fig_delta"], results["fig_snapshot"]
+    f10 = results["fig10_restore"]
+    bad = [f"fig_delta kf{c['keyframe_every']} dirty{c['dirty_frac']}"
+           for c in delta["cells"] if not (c["ok_full"] and c["ok_delta"])]
+    bad += [f"fig_snapshot {c}" for c in snap["chunk_cells"]
+            + snap["dirty_cells"] if not c["ok"]]
+    bad += [] if f10["roundtrip_ok"] else ["fig10 restore"]
+    if bad:
+        fail(f"phase 14: restores not bit-exact: {bad}")
+    print(f"  bit-exact: fig_delta's {2 * len(delta['cells'])} chain "
+          f"restores, fig_snapshot's {len(snap['chunk_cells'])} stall and "
+          f"{len(snap['dirty_cells'])} dirty cells, fig10's parallel "
+          f"restore", flush=True)
+    print(f"  verdicts (measurements, not held): fig_delta "
+          f"{delta['verdict']} (best sparse bytes_x "
+          f"{delta['best_sparse_bytes_x']}), fig_snapshot {snap['verdict']}"
+          f" (stall_x {snap['default_chunk_stall_x']}, sparse pcie_x "
+          f"{snap['sparse_pcie_x']}), fig10 4 readers vs 1 "
+          f"{f10['speedup_4readers_vs_single']}x", flush=True)
+    n_b1 = snap["steps"] * len(snap["dirty_cells"])
+    n_b2 = len(results["beyond_quant"][True].device_amax)
+    print(f"  launches in phase 14: {launches} (expected B1 {n_b1}: one "
+          f"per delta save of fig_snapshot's device-dirty chains; B2 "
+          f"{n_b2}: one per leaf of beyond_quant's int8 save)", flush=True)
+    if launches["ckpt_pack_dirty_blocks"] != n_b1 or n_b1 < 1:
+        fail(f"phase 14: ckpt_pack_dirty_blocks launched "
+             f"{launches['ckpt_pack_dirty_blocks']} times; expected {n_b1}")
+    if launches["ckpt_pack_blocks"] != n_b2 or n_b2 < 1:
+        fail(f"phase 14: ckpt_pack_blocks launched "
+             f"{launches['ckpt_pack_blocks']} times; expected {n_b2}")
+    _hold_quant_amax(results["beyond_quant"], device)
+    return launches, errs
 
 
 def sass_check():
@@ -2798,6 +3024,18 @@ def main():
     launches["flash_attention"] += expert_parallel(device, times)
     lap("13")
     print(f"phase 13 times: {json.dumps(times)}", flush=True)
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    times = {}
+    figure_launches, figure_errs = paper_figures(device, disk_peak, times)
+    for name, n in figure_launches.items():
+        launches[name] += n
+    for e in entries:
+        if e["name"] in figure_errs:
+            e["max_abs_err"] = max(e["max_abs_err"], figure_errs[e["name"]])
+    lap("14")
+    print(f"phase 14 times: {json.dumps(times)}", flush=True)
     for e in entries:
         e["launches"] = launches[e["name"]]
     print(f"seconds per phase: {json.dumps(laps)}", flush=True)

@@ -28,14 +28,23 @@ apart op by op.
 No trip counts: a Python loop over layers runs every iteration, each
 counted as it runs. Composite ops are counted as the ops they decompose
 into, with or without autograd (``torch.inference_mode`` hands the mode
-``matmul`` and ``einsum`` whole). A kernel launched outside aten (the
-port's CUDA kernels, through ``ctypes``) is not seen.
+``matmul`` and ``einsum`` whole). The exception is ``F.one_hot``, whose
+decomposition ATen picks by device: zeros + ``scatter_`` on CUDA,
+arange + ``eq`` + a cast on meta (and on the CPU under
+``inference_mode``). A ``TorchFunctionMode`` sees it above that choice
+and counts it as ONE op named ``one_hot``, with its operand and result
+bytes as any other op; the aten ops it runs inside are not counted. So
+a program counts the same bytes on every device. A kernel launched
+outside aten (the port's CUDA kernels, through ``ctypes``) is not
+seen.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
+from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
@@ -48,6 +57,8 @@ COLLECTIVES = {"allreduce_": "all-reduce", "allreduce_coalesced_":
                "reduce_scatter_tensor_coalesced_": "reduce-scatter",
                "alltoall_": "all-to-all", "alltoall_base_": "all-to-all",
                "broadcast_": "broadcast"}
+#: the op counted whole (the builtin, whatever later rebinds ``F.one_hot``)
+_ONE_HOT = F.one_hot
 #: allocations whose result nothing has written yet
 _UNWRITTEN = {"empty", "empty_like", "empty_strided", "new_empty",
               "new_empty_strided"}
@@ -77,6 +88,32 @@ def matmul_flops(name: str, args, out) -> int:
     return 2 * _prod(out.shape) * int(a.shape[-1])
 
 
+class _OneHot(TorchFunctionMode):
+    """The function-level half of :class:`OpCost`: runs ``F.one_hot``
+    with the aten count paused and counts it once. A mode, and not an
+    explicit one-hot in the models, because the models call
+    ``F.one_hot`` as the reference's do, and the per-op byte table that
+    chip_smoke.py phase 13 (c) prints and holds across devices keeps
+    one ``one_hot`` row for it."""
+
+    def __init__(self, cost: "OpCost"):
+        super().__init__()
+        self.cost = cost
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func is not _ONE_HOT:
+            return func(*args, **kwargs)
+        self.cost._paused += 1
+        try:
+            out = func(*args, **kwargs)
+        finally:
+            self.cost._paused -= 1
+        self.cost.n_ops += 1
+        self.cost._count_bytes("one_hot", args, kwargs, out)
+        return out
+
+
 class OpCost(TorchDispatchMode):
     """Count the aten ops run inside ``with OpCost() as c:``; read
     ``c.aggregate()`` after."""
@@ -88,9 +125,35 @@ class OpCost(TorchDispatchMode):
         self.coll = {}
         self.n_ops = 0
         self.by_op = {}
+        self._paused = 0
+        self._depth = 0
+        self._one_hot = _OneHot(self)
+
+    def __enter__(self):
+        # the dispatch handler re-enters this mode (``with self``) to
+        # decompose; the function mode belongs to the outermost entry
+        if self._depth == 0:
+            self._one_hot.__enter__()
+        self._depth += 1
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        try:
+            return super().__exit__(*exc)
+        finally:
+            self._depth -= 1
+            if self._depth == 0:
+                self._one_hot.__exit__(*exc)
+
+    def _count_bytes(self, name, args, kwargs, out):
+        n = sum(_nbytes(t) for t in _tensors((args, kwargs, out)))
+        self.bytes += n
+        self.by_op[name] = self.by_op.get(name, 0) + n
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if self._paused:
+            return func(*args, **kwargs)
         # a composite op (``matmul``, ``einsum`` under inference mode,
         # where autograd does not decompose them first) is counted as
         # the ops it decomposes into
@@ -109,9 +172,7 @@ class OpCost(TorchDispatchMode):
             return out
         self.flops += matmul_flops(name, args, out)
         if not func.is_view and name not in _UNWRITTEN:
-            n = sum(_nbytes(t) for t in _tensors((args, kwargs, out)))
-            self.bytes += n
-            self.by_op[name] = self.by_op.get(name, 0) + n
+            self._count_bytes(name, args, kwargs, out)
         return out
 
     def aggregate(self) -> dict:

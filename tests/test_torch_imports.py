@@ -184,3 +184,38 @@ print("ok")
             for p in (ROOT / "src" / "repro_torch").rglob("*.py")
             for m in tpu.finditer(p.read_text())]
     assert not hits, hits
+
+
+BENCHMARK_MODULES = ["repro_torch.benchmarks." + m for m in
+                     ("common", "run", "fig11_pipelining",
+                      "fig9_dense_models", "perf_writer",
+                      "fig7_buffer_sweep", "fig8_parallel_writes",
+                      "fig2_baseline_util", "fig10_parallel_restore",
+                      "fig_delta", "fig_snapshot", "beyond_quant")]
+
+
+def test_benchmark_modules_import_no_jax():
+    """The port's figures exist, are all in the harness, and import
+    nothing of JAX, the JAX package, ml_dtypes or the reference's
+    top-level ``benchmarks`` package; the walk of
+    ``test_port_and_chip_smoke_import_no_jax`` reaches them too."""
+    code = f"""
+import importlib, pkgutil, sys
+import repro_torch
+walked = {{m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                 "repro_torch.")}}
+for name in {BENCHMARK_MODULES!r}:
+    assert name in walked, name
+    importlib.import_module(name)
+from repro_torch.benchmarks import run
+assert sorted("repro_torch.benchmarks." + m for _, m in run.FIGURES) == \\
+    sorted(n for n in {BENCHMARK_MODULES!r}
+           if not n.endswith((".common", ".run")))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in {FORBIDDEN!r} + ("benchmarks",))
+assert not bad, bad
+print("ok")
+"""
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
