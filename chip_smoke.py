@@ -2784,12 +2784,113 @@ def _hold_quant_amax(bq: dict, device):
           f"{sorted(leaves)} equal the plain version's", flush=True)
 
 
+#: the dry-run pairs phase 14 writes for the tables: phase 13's pair with
+#: and without expert parallelism, and one decode pair
+FIGURE_DRY_RUNS = (("gpt3_1_8b_moe", "train_4k", False),
+                   ("gpt3_1_8b_moe", "train_4k", True),
+                   ("stablelm_1_6b", "decode_32k", False))
+
+
+def _figure_dry_runs() -> dict:
+    """Count ``FIGURE_DRY_RUNS`` on meta tensors on the 16 x 16 mesh and
+    write them where the port's ``roofline`` and ``make_tables`` read
+    (``experiments/torch/dryrun`` under the working directory). Returns
+    the results by roofline key."""
+    from repro_torch.benchmarks.roofline import dryrun_dir, row_key
+    from repro_torch.launch import dryrun
+    out = dryrun_dir()
+    os.makedirs(out, exist_ok=True)
+    rows = {}
+    for arch, shape, ep in FIGURE_DRY_RUNS:
+        r = dryrun.lower_one(arch, shape, verbose=False, shard_map_moe=ep)
+        tag = "pod_ep" if ep else "pod"
+        with open(os.path.join(out, f"{arch}__{shape}__{tag}.json"),
+                  "w") as f:
+            json.dump(r, f, indent=2)
+        rows[row_key(r)] = r
+    return rows
+
+
+def _hold_tier_figures(results: dict, times: dict):
+    """The durability tiers' bit-exact round trips and fig_serve's
+    deterministic fields, held; their timed verdicts and the analytic
+    projections printed, never held."""
+    f13, peer, serve = (results["fig13"], results["fig_peer"],
+                        results["fig_serve"])
+    bad = [] if f13["roundtrip_ok"] else ["fig13 remote round trip"]
+    bad += [] if peer["failover_ok"] else ["fig_peer failover"]
+    if bad:
+        fail(f"phase 14: restores onto the card not bit-exact: {bad}")
+    if serve["warm_fetched_bytes"] != 0 or not serve["dedup_metadata_only"]:
+        fail(f"phase 14: fig_serve fetched {serve['warm_fetched_bytes']} B "
+             f"warm (0 expected); dedup to metadata only: "
+             f"{serve['dedup_metadata_only']}")
+    print(f"  bit-exact onto the card: fig13's remote round trip "
+          f"({f13['mb']} MiB), fig_peer's failover from a surviving peer "
+          f"({peer['mb']} MiB), fig_serve's served head; fig_serve warm "
+          f"hydration fetched 0 B, the unchanged re-save deduped to "
+          f"metadata ({serve['dedup_bytes_saved']} B)", flush=True)
+    verdicts = {
+        "fig13 overhead_pct": f13["overhead_pct"],
+        "fig13 overlap_pct": f13["overlap_pct"],
+        "fig13 verdict": f13["verdict"],
+        "fig_peer tier_gap_x": peer["tier_gap_x"],
+        "fig_peer t_replicated_ms": peer["t_replicated_ms"],
+        "fig_peer t_uploaded_ms": peer["t_uploaded_ms"],
+        "fig_peer verdict": peer["verdict"],
+        "fig_serve speedup_4x": serve["speedup_4x"],
+        "fig_serve tensor_fetch_frac": serve["tensor_fetch_frac"],
+        "fig_serve verdict": serve["verdict"],
+        "fig10b e2e by dp": {str(k): v for k, v in results["fig10"].items()},
+        "fig12 speedup": {f"{k}/dp{dp}": v
+                          for (k, dp), v in results["fig12"].items()},
+    }
+    print(f"  verdicts (measurements and projections, not held): "
+          f"{json.dumps(verdicts)}", flush=True)
+    times["tier verdicts"] = verdicts
+
+
+def _hold_tables(results: dict, dry: dict):
+    """The roofline's rows keep the dry run's ``dominant``; then every
+    table is printed."""
+    import contextlib
+    import io
+
+    from repro_torch.benchmarks import make_tables
+    rows = results["roofline"]
+    if sorted(rows) != sorted(dry):
+        fail(f"phase 14: roofline rows {sorted(rows)}; the dry run wrote "
+             f"{sorted(dry)}")
+    off = {k: (rows[k][3], r["dominant"]) for k, r in dry.items()
+           if rows[k][3] != r["dominant"]}
+    if off:
+        fail(f"phase 14: roofline dominant differs from the dry run's: "
+             f"{off}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        make_tables.render()
+    text = buf.getvalue()
+    for want in ("### Roofline", "### Tiered durability",
+                 "### Peer-replication", "### Checkpoint serving",
+                 "989 TF/s"):
+        if want not in text:
+            fail(f"phase 14: make_tables printed no {want!r}")
+    print(f"  roofline dominant equals the dry run's on "
+          f"{ {k: r['dominant'] for k, r in dry.items()} }; the tables:",
+          flush=True)
+    print(text, flush=True)
+
+
 def paper_figures(device, disk_peak: int, times: dict) -> dict:
     """Phase 14: the paper's figures through ``repro_torch.benchmarks.run``
     in this process on the card at their quick sizes, with
     ``FASTPERSIST_BENCH_DIR`` and the working directory in a temporary
-    directory. Every figure must run; the bit-exact checks of fig_delta,
-    fig_snapshot and fig10 must hold; B1 must launch once per delta save
+    directory, where the dry run of ``FIGURE_DRY_RUNS`` is written first
+    for ``roofline``. Every figure must run; the bit-exact checks of
+    fig_delta, fig_snapshot, fig10, fig13 and fig_peer and fig_serve's
+    warm and dedup fields must hold (``_hold_tier_figures``), and the
+    roofline's ``dominant`` must equal the dry run's (``_hold_tables``,
+    which prints every table); B1 must launch once per delta save
     of fig_snapshot's device-dirty chains and B2 once per leaf of
     beyond_quant's int8 save; no figure may hold more on the disk at once
     than ``_disk_budget(disk_peak)``. The figures' verdicts are printed,
@@ -2812,6 +2913,7 @@ def paper_figures(device, disk_peak: int, times: dict) -> dict:
     held = {}
     results, seconds, failed = {}, {}, []
     try:
+        dry = _figure_dry_runs()   # what roofline and the tables read
         _zero_counts()             # just before the figures
         for name, _module in bench.FIGURES:
             watch = _DiskPeak([tmp, PEER_ROOT])
@@ -2824,6 +2926,9 @@ def paper_figures(device, disk_peak: int, times: dict) -> dict:
         launches = {"ckpt_pack_dirty_blocks":
                     cp.ckpt_pack_dirty_blocks.launches,
                     "ckpt_pack_blocks": cp.ckpt_pack_blocks.launches}
+        if not failed:
+            _hold_tier_figures(results, times)
+            _hold_tables(results, dry)
     finally:
         os.chdir(cwd)
         if env is None:

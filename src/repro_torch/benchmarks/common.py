@@ -50,13 +50,16 @@ def synth_bytes(mb: float, seed=0) -> np.ndarray:
     return rng.integers(0, 255, size=int(mb * 2**20), dtype=np.uint8)
 
 
-def synth_state(mb: float, device, seed: int = 0) -> dict:
+def synth_state(mb: float, device, seed: int = 0,
+                n: int | None = None) -> dict:
     """A training state of ``mb`` MiB (14 bytes a parameter) drawn on
     ``device`` from ``seed``, with the reference's leaf names and dtypes
     (benchmarks/fig9_dense_models.py): ``p`` bf16 params, ``mw`` f32
-    master weights, ``m`` zero and ``v`` one Adam moments."""
+    master weights, ``m`` zero and ``v`` one Adam moments. ``n`` gives
+    the element count exactly (``mb`` is then ignored)."""
     device = torch.device(device)
-    n = max(int(mb * 2**20) // 14, 1)
+    if n is None:
+        n = max(int(mb * 2**20) // 14, 1)
     g = torch.Generator(device=device).manual_seed(seed)
     return {"p": torch.randn(n, generator=g, device=device,
                              dtype=torch.bfloat16),

@@ -18,7 +18,8 @@ import sys
 import time
 import traceback
 
-#: (row name, module) of every ported figure, in the reference's order
+#: (row name, module) of every ported figure; ``roofline`` last, as in
+#: the reference's run.py (it reads the dry run's JSON, not a figure's)
 FIGURES = (
     ("fig2", "fig2_baseline_util"),
     ("fig7", "fig7_buffer_sweep"),
@@ -30,6 +31,13 @@ FIGURES = (
     ("fig_delta", "fig_delta"),
     ("fig_snapshot", "fig_snapshot"),
     ("fig10_restore", "fig10_parallel_restore"),
+    ("fig10", "fig10_moe"),
+    ("table1", "table1_bandwidth"),
+    ("fig12", "fig12_projection"),
+    ("fig13", "fig13_tiered_upload"),
+    ("fig_peer", "fig_peer"),
+    ("fig_serve", "fig_serve"),
+    ("roofline", "roofline"),
 )
 
 

@@ -8,6 +8,10 @@ Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun \
         --all [--multi-pod] [--out DIR]
 
+``--out`` defaults to ``experiments/torch/dryrun``, where the port's
+``roofline`` and ``make_tables`` read (the reference's tables read
+``experiments/dryrun``, whose keys differ).
+
 The step — the train step (remat, ``ce_chunk=512``, Adam), prefill, or
 one decode step — runs ONCE on the global batch on ``device="meta"``:
 nothing is allocated and nothing is computed, but every aten op it would
@@ -21,7 +25,10 @@ run is counted by ``launch/op_cost.py``. The terms of the result:
     reference reads its per-device HLO instead); bytes are an eager,
     unfused upper bound (every intermediate written and read again);
   * ``collective_bytes_per_device``: ``collective_bytes`` below, a
-    function of the specs and the model, not a count;
+    model of the program the specs shard (not a count), held within
+    25 % of the reference's HLO count on a 2 x 4 mesh for one pair per
+    family (tests/test_torch_dryrun_mesh.py); ``collectives_not_counted``
+    names the kinds it leaves out, and why;
   * ``t_compute_s`` and ``t_collective_s`` at the H100 SXM data sheet's
     rates, ``model_flops_global`` and ``useful_flops_ratio`` as the
     reference computes them;
@@ -46,6 +53,7 @@ import json
 import os
 import time
 from dataclasses import replace
+from typing import NamedTuple
 
 import torch
 
@@ -71,6 +79,19 @@ LINK_BW = 450e9
 #: what the result says of its memory term
 MEMORY_TERM = ("t_memory_upper_s is an upper bound (eager, unfused "
                "bytes) and takes no part in dominant")
+#: bytes an element of every collective ``collective_bytes`` counts: the
+#: products take bf16 operands and accumulate in f32, and the partitioned
+#: program reduces a split product's f32 partial sums (and gathers the
+#: f32 master) before the cast to bf16, as the reference's HLO shows
+ACC_BYTES = 4
+#: the kinds the collective model leaves out, and why; the result says so
+NOT_COUNTED = {
+    "collective-permute": "XLA's halo exchange of a slice or split whose "
+                          "bounds fall inside a shard (rope's halves of a "
+                          "split head, the SSM's fused in_proj split)",
+    "all-to-all": "XLA's re-layout of rope's halves of a head dim split "
+                  "over model",
+}
 
 
 def _config(arch: str):
@@ -114,9 +135,12 @@ def leaf_specs(tree, spec_tree):
     return [x for t, s in zip(tree, spec_tree) for x in leaf_specs(t, s)]
 
 
+def _shard_elems(t, spec, mesh) -> int:
+    return torch.Size(shard_shape(t.shape, spec, mesh)).numel()
+
+
 def _shard_bytes(t, spec, mesh) -> int:
-    return (torch.Size(shard_shape(t.shape, spec, mesh)).numel()
-            * t.element_size())
+    return _shard_elems(t, spec, mesh) * t.element_size()
 
 
 def argument_bytes(specs: dict, spec_tree: dict, mesh) -> int:
@@ -126,59 +150,224 @@ def argument_bytes(specs: dict, spec_tree: dict, mesh) -> int:
                for t, s in leaf_specs(specs, spec_tree))
 
 
-def _tp_all_reduces(cfg) -> int:
-    """All-reduces of the activations over ``model`` in one forward:
-    Megatron's two per attention + MLP block (after the row-parallel
-    ``wo``; a MoE layer's combine — moe_ep's one — stands for its MLP's,
-    a dense residual adds one), one per SSM block (``out_proj``), three
-    per encdec decoder block (self, cross, MLP)."""
-    per_block = 2 + (1 if cfg.moe is not None and cfg.moe.dense_residual
-                     else 0)
-    if cfg.arch_type == "ssm":
-        return cfg.n_layers
-    if cfg.arch_type == "hybrid":
-        n_groups = cfg.n_layers // cfg.attn_every
-        return cfg.n_layers + 2 * n_groups
+class _Blocks(NamedTuple):
+    """``n`` blocks of one kind, as the model axis sees them: ``rows``
+    row-parallel products whose f32 partial sums a forward all-reduces
+    (``wo``, the MLP's down projection, the expert combine, the SSM's
+    ``out_proj``); ``cols`` column-parallel products whose input gradient
+    the backward all-reduces, each on its own (q, k, v, gate, up, the
+    expert dispatch, the SSM's ``in_proj``; MLA's latent products count
+    their latent's share of ``d_model``); ``remat`` when the block is
+    recomputed in the backward; ``post_norm`` when a norm follows its
+    last row-parallel product (gemma2); ``enc`` when it runs on the
+    encoder's positions; ``attn`` when it attends over a K/V cache in
+    serving; ``cross`` products reading the encoder output
+    (their gradient reduced at the encoder's positions); ``kv_gather``
+    when its K/V heads do not split over ``model`` (each device gathers
+    whole heads); ``latent`` MLA's normalized latent width, gathered at
+    each use; ``inner`` the SSM width whose gradient the backward
+    gathers."""
+    n: int
+    rows: int
+    cols: float
+    remat: bool = False
+    post_norm: bool = False
+    enc: bool = False
+    attn: bool = True
+    cross: int = 0
+    kv_gather: bool = False
+    latent: int = 0
+    inner: int = 0
+
+
+def _tp_blocks(cfg, m: int, remat: bool) -> list:
+    """The blocks of ``cfg`` on a ``model`` axis of size ``m``, under the
+    port's specs (``sharding/specs.py``): heads, the MLP's hidden width,
+    the SSM's fused projection and the experts (``E``) split over
+    ``model``."""
+    mlp_cols = 2 if cfg.gated_mlp else 1
+    kv_gather = (cfg.attn_kind == "gqa"
+                 and cfg.n_kv_heads % m != 0)
+    if cfg.arch_type in ("ssm", "hybrid"):
+        inner = cfg.ssm.expand * cfg.d_model
+        out = [_Blocks(cfg.n_layers, 1, 1, attn=False, inner=inner)]
+        if cfg.arch_type == "hybrid":
+            out.append(_Blocks(cfg.n_layers // cfg.attn_every, 2,
+                               3 + mlp_cols, kv_gather=kv_gather))
+        return out
     if cfg.arch_type == "encdec":
-        return 2 * cfg.n_enc_layers + 3 * cfg.n_layers
-    return per_block * cfg.n_layers
+        return [_Blocks(cfg.n_enc_layers, 2, 3 + mlp_cols, enc=True,
+                        attn=False),
+                _Blocks(cfg.n_layers, 3, 4 + mlp_cols, remat=remat,
+                        cross=2, kv_gather=kv_gather)]
+    rows, ffn_cols = 2, mlp_cols
+    if cfg.moe is not None:
+        ffn_cols = 1                      # the dispatch product
+        if cfg.moe.dense_residual:
+            rows, ffn_cols = 3, 1 + mlp_cols
+    if cfg.attn_kind == "mla":
+        la = cfg.mla
+        latent = la.q_lora_rank + la.kv_lora_rank + la.qk_rope_head_dim
+        return [_Blocks(cfg.n_layers, rows, 2 + latent / cfg.d_model
+                        + ffn_cols, remat=remat, latent=latent)]
+    return [_Blocks(cfg.n_layers, rows, 3 + ffn_cols, remat=remat,
+                    post_norm=cfg.attn_softcap is not None,
+                    kv_gather=kv_gather)]
+
+
+def _add(out: dict, kind: str, nbytes) -> None:
+    if nbytes:
+        out[kind] = out.get(kind, 0.0) + float(nbytes)
+
+
+def _on_model(spec) -> bool:
+    """Whether a leaf's spec splits some dim over ``model``."""
+    return any(e == "model" or (isinstance(e, tuple) and "model" in e)
+               for e in spec)
+
+
+def _split_weight_elems(params, mesh) -> int:
+    """Elements of the layer weights that ``param_specs`` splits over
+    ``model`` (the embedding and the unembedding left out)."""
+    layers = {k: v for k, v in params.items()
+              if k not in ("embed", "lm_head")}
+    return sum(t.numel() for t, spec in leaf_specs(
+        layers, param_specs(layers, mesh)) if _on_model(spec))
+
+
+def _cache_seq_split(specs, mesh, batch_size) -> bool:
+    """Whether ``cache_specs`` splits the attention cache's sequence over
+    ``model`` (a cache at least ``128·|model|`` long)."""
+    cache = specs["cache"]
+    return any(_on_model(spec) for _, spec in leaf_specs(
+        cache, cache_specs(cache, mesh, batch_size)))
+
+
+def _model_axis_train(cfg, shape, b_loc, mesh, out) -> None:
+    """The ``model`` axis's collectives of a train step (remat, chunked
+    CE, the backward)."""
+    m = mesh.shape["model"]
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    n_prefix = cfg.n_frontend_tokens if cfg.frontend == "vision" else 0
+    tok = b_loc * (shape.seq_len + n_prefix)
+    tok_enc = b_loc * cfg.n_enc_ctx
+    for blk in _tp_blocks(cfg, m, remat=True):
+        t = tok_enc if blk.enc else tok
+        act = t * d * ACC_BYTES
+        re_rows = (blk.rows if blk.post_norm else blk.rows - 1) \
+            if blk.remat else 0
+        _add(out, "all-reduce",
+             blk.n * act * (blk.rows + re_rows + blk.cols))
+        _add(out, "all-reduce", blk.n * blk.cross * tok_enc * d
+             * ACC_BYTES)
+        passes = 2 if blk.remat else 1
+        if blk.kv_gather:
+            kv = t * max(cfg.n_kv_heads // m, 1) * hd * ACC_BYTES
+            _add(out, "all-gather", blk.n * 2 * passes * kv)
+            _add(out, "all-reduce", blk.n * 2 * kv)
+        _add(out, "all-gather", blk.n * (passes + 1) * t * blk.latent
+             * ACC_BYTES)
+        _add(out, "all-gather", blk.n * t * blk.inner * ACC_BYTES)
+    if cfg.vocab_size % m == 0:
+        # the vocab-split embedding's lookup, the unembedding's input
+        # gradient, and the chunked CE's max, sum and target logit
+        _add(out, "all-reduce", b_loc * shape.seq_len * d * ACC_BYTES
+             + tok * d * ACC_BYTES + 3 * b_loc * shape.seq_len
+             * ACC_BYTES)
+
+
+def _model_axis_serve(cfg, shape, b_loc, specs, mesh, out) -> None:
+    """The ``model`` axis's collectives of a prefill or decode step."""
+    m = mesh.shape["model"]
+    d, hd, H = cfg.d_model, cfg.resolved_head_dim, cfg.n_heads
+    s_q = 1 if shape.kind == "decode" else shape.seq_len
+    tok = b_loc * s_q
+    act = tok * d * ACC_BYTES
+    blocks = _tp_blocks(cfg, m, remat=False)
+    attn = sum(b.n for b in blocks if b.attn)
+    split = _cache_seq_split(specs, mesh, shape.global_batch)
+    if split and attn:
+        # attention over a cache whose sequence is split: the queries
+        # gathered to every head, the partial outputs and the softmax's
+        # max and sum reduced
+        if cfg.attn_kind == "mla":
+            q_w = H * (cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim)
+            o_w = H * cfg.mla.v_head_dim
+        else:
+            q_w = o_w = H * hd
+        _add(out, "all-gather", attn * tok * q_w * ACC_BYTES)
+        _add(out, "all-reduce", attn * (tok * o_w + 2 * b_loc * H * s_q)
+             * ACC_BYTES)
+    reduce_ = sum(b.n * b.rows * (b_loc * cfg.n_enc_ctx * d * ACC_BYTES
+                                  if b.enc else act) for b in blocks)
+    gather = _split_weight_elems(specs["params"], mesh) * ACC_BYTES
+    if reduce_ <= gather:
+        _add(out, "all-reduce", reduce_)
+        if split and attn and cfg.attn_kind != "mla":
+            # the new keys and values, head-split, gathered to be written
+            # into the sequence-split cache
+            _add(out, "all-gather", attn * 2 * tok * cfg.n_kv_heads * hd
+                 * ACC_BYTES)
+    else:
+        _add(out, "all-gather", gather)
+    if cfg.vocab_size % m == 0:
+        table = cfg.vocab_size * d * ACC_BYTES
+        _add(out, "all-reduce" if act <= table else "all-gather",
+             min(act, table))
 
 
 def collective_bytes(cfg, shape, mesh, specs: dict, fsdp: bool = False):
-    """Collective bytes per device of one step, by kind (each counted as
-    its result's bytes, as the reference's HLO count does):
+    """Collective bytes per device of one step, by kind, each counted as
+    its result's bytes at ``ACC_BYTES`` an element (as the reference's
+    HLO count reads its partitioned program). A model of the program the
+    port's specs shard, held against the reference's count on a 2 x 4
+    mesh for one pair per family (tests/test_torch_dryrun_mesh.py):
 
-      * over ``model`` (|model| > 1): ``_tp_all_reduces`` all-reduces of
-        the bf16 activations of one device's batch shard, per forward —
-        three forwards in a remat train step (forward, recompute,
-        backward's transposes), one in prefill and decode;
+      * over ``model`` (|model| > 1), train: per block (``_tp_blocks``)
+        one all-reduce of the activations per row-parallel product in
+        the forward, again in the recompute for each the backward needs
+        (all but the last, unless a norm follows it), and one per
+        column-parallel product's input gradient; a block whose K/V heads
+        do not split gathers them (forward, recompute) and reduces their
+        gradients; MLA gathers its normalized latents at each use, the
+        SSM its inner-width gradient; per step, the vocab-split
+        embedding's lookup, the unembedding's input gradient and the
+        chunked CE's statistics. Prefill and decode: attention over a
+        sequence-split cache gathers the queries and reduces the partial
+        outputs and the softmax statistics; each row-parallel product
+        all-reduces its output unless gathering the split weights moves
+        fewer bytes (a long prompt), and where the weights stay split
+        the new keys and values are gathered into the cache;
       * over ``data`` (|data| > 1, train only), ZeRO-1: every gradient
-        (bf16, this device's TP shard) reduce-scattered to its
-        ``zero1_specs`` shard where that spec adds ``data``, all-reduced
-        where it does not; then the updated bf16 params all-gathered
-        back. Under ``fsdp`` the bf16 params stay split over ``data``
-        (ZeRO-3), so no all-gather follows the update; instead every
-        split param is all-gathered where a remat train step uses it:
-        in the forward, in the backward's recompute of that forward, and
-        in the backward's products with the weight (dx = dy · Wᵀ) —
-        three gathers of the param per step, the same three uses as the
-        three forwards above. That is a model of ZeRO-3's schedule, not
-        a count: a compiler that keeps a gathered weight live from the
+        (this device's TP shard) reduce-scattered to its ``zero1_specs``
+        shard where that spec adds ``data``, all-reduced where it does
+        not; then the updated params all-gathered back. Under ``fsdp``
+        the params stay split over ``data`` (ZeRO-3), so no all-gather
+        follows the update; instead every split param is all-gathered
+        where a remat train step uses it: in the forward, in the
+        backward's recompute of that forward, and in the backward's
+        products with the weight (dx = dy · Wᵀ) — three gathers of the
+        param per step. That is a model of ZeRO-3's schedule, not a
+        count: a compiler that keeps a gathered weight live from the
         recompute to the backward gathers it twice.
+
+    Not counted (``NOT_COUNTED``): the collective-permutes and
+    all-to-alls with which XLA's partitioner moves the halves of a split
+    that falls inside a shard (rope's halves of a split head, the SSM's
+    fused z|x|B|C|dt projection).
     """
     m = mesh.shape["model"]
     dp = 1
     for a in dp_axes(mesh):
         dp *= mesh.shape[a]
-    B, S = shape.global_batch, shape.seq_len
-    if shape.kind == "decode":
-        S = 1
+    B = shape.global_batch
     b_loc = B // dp if B % dp == 0 and B > 1 else B
     out = {}
     if m > 1:
-        act = b_loc * S * cfg.d_model * 2
-        n_fwd = 3 if shape.kind == "train" else 1
-        out["all-reduce"] = float(_tp_all_reduces(cfg) * act * n_fwd)
+        if shape.kind == "train":
+            _model_axis_train(cfg, shape, b_loc, mesh, out)
+        else:
+            _model_axis_serve(cfg, shape, b_loc, specs, mesh, out)
     if shape.kind == "train" and dp > 1:
         params = specs["state"].params
         rs = ar = ag = 0
@@ -186,14 +375,13 @@ def collective_bytes(cfg, shape, mesh, specs: dict, fsdp: bool = False):
                 leaf_specs(params, param_specs(params, mesh)),
                 leaf_specs(params, zero1_specs(params, mesh))):
             if z1 != tp:
-                rs += _shard_bytes(t, z1, mesh)
-                ag += _shard_bytes(t, tp, mesh) * (3 if fsdp else 1)
+                rs += _shard_elems(t, z1, mesh)
+                ag += _shard_elems(t, tp, mesh) * (3 if fsdp else 1)
             else:
-                ar += _shard_bytes(t, tp, mesh)
+                ar += _shard_elems(t, tp, mesh)
         for kind, v in (("reduce-scatter", rs), ("all-reduce", ar),
                         ("all-gather", ag)):
-            if v:
-                out[kind] = out.get(kind, 0.0) + float(v)
+            _add(out, kind, v * ACC_BYTES)
     return out
 
 
@@ -278,6 +466,7 @@ def lower_one(arch: str, shape_name: str, multi_pod: bool = False,
         "model_flops_global": model_flops_global,
         "useful_flops_ratio": model_flops_global / max(agg["flops"], 1.0),
         "memory_term": MEMORY_TERM,
+        "collectives_not_counted": NOT_COUNTED,
     }
     terms = {"compute": result["t_compute_s"],
              "collective": result["t_collective_s"]}
@@ -293,7 +482,10 @@ def main(argv=None):
     ap.add_argument("--shape", default=None)
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--multi-pod", action="store_true")
-    ap.add_argument("--out", default="experiments/dryrun")
+    # beside the port's figure JSON (benchmarks/common.py's EXPERIMENTS),
+    # apart from the reference's experiments/dryrun, whose keys differ
+    ap.add_argument("--out", default=os.path.join("experiments", "torch",
+                                                  "dryrun"))
     args = ap.parse_args(argv)
 
     if args.all:

@@ -358,13 +358,19 @@ def moe_apply(p, x, cfg, *, n_groups=1, capacity_factor=None,
     combine = torch.einsum("gtke,gtkec->gtec",
                            (r.gate_v[..., None] * onehot).to(x.dtype).float(),
                            slot.float())
+    # the aux loss and the dense residual come before the combine, the
+    # last product: a recompute under ``checkpoint`` stops after the last
+    # tensor the backward saved, so the combine is not run again (as XLA
+    # drops it from the reference's rematerialized block)
+    aux = _moe_aux(cfg, r, onehot)
+    res = (mlp(p["dense"], x, gated=cfg.gated_mlp, act=F.silu)
+           if cfg.moe.dense_residual else None)
     ex_in = torch.einsum("gtec,gtd->gecd", dispatch, xt)
     ex_out = _expert_ffn(p, ex_in, "g")
     out = torch.einsum("gtec,gecd->gtd", combine.to(x.dtype), ex_out)
     out = out.reshape(B, L, D)
-    aux = _moe_aux(cfg, r, onehot)
-    if cfg.moe.dense_residual:
-        out = out + mlp(p["dense"], x, gated=cfg.gated_mlp, act=F.silu)
+    if res is not None:
+        out = out + res
     return out, aux
 
 

@@ -261,24 +261,31 @@ def test_lower_one_moe_ep_and_cli(tmp_path, capsys):
 
 
 def test_tp_and_zero1_collectives():
-    """``collective_bytes`` on stablelm_1_6b's train step. On 1 x 16
-    (model only): 2 all-reduces a layer of the bf16 activations, in each
-    of three forwards (forward, recompute, backward). On 16 x 1 (data
-    only), ZeRO-1: each gradient either reduce-scattered to a 16th (and
-    the param all-gathered back whole) or all-reduced whole, so the
-    reduce-scatter is a 16th of the all-gather and the two kinds cover
-    the params once."""
+    """``collective_bytes`` on stablelm_1_6b's train step, each element
+    at 4 bytes (f32 partial sums and master). On 1 x 16 (model only):
+    per layer, the forward's all-reduce after ``wo`` and after the MLP's
+    down projection, the recompute's one after ``wo`` (the backward
+    needs no more), and one per column-parallel product's input gradient
+    (q, k, v, gate, up): 8 activations; per step, the vocab-split
+    embedding's lookup and the unembedding's input gradient, plus the
+    chunked CE's three per-token scalars. On 16 x 1 (data only), ZeRO-1:
+    each gradient either reduce-scattered to a 16th (and the param
+    all-gathered back whole) or all-reduced whole, so the reduce-scatter
+    is a 16th of the all-gather and the two kinds cover the params once
+    (at 4 bytes an element)."""
     from repro_torch.launch.mesh import make_mesh
     cfg = get_config("stablelm_1_6b")
     shape = INPUT_SHAPES["train_4k"]
     specs = input_specs(cfg, shape, build_model(cfg))
     tp = dryrun.collective_bytes(cfg, shape, make_mesh(
         (1, 16), ("data", "model")), specs)
-    act = 256 * 4096 * cfg.d_model * 2
-    assert tp == {"all-reduce": 2 * cfg.n_layers * act * 3}
+    tokens = 256 * 4096
+    act = tokens * cfg.d_model * 4
+    assert tp == {"all-reduce": (8 * cfg.n_layers + 2) * act
+                  + 3 * tokens * 4}
     dp = dryrun.collective_bytes(cfg, shape, make_mesh(
         (16, 1), ("data", "model")), specs)
-    total = sum(t.numel() * t.element_size() for t in
+    total = sum(t.numel() * 4 for t in
                 tree_leaves(specs["state"].params))
     assert dp["all-gather"] == 16 * dp["reduce-scatter"]
     assert dp["all-gather"] + dp.get("all-reduce", 0) == total

@@ -9,6 +9,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
@@ -191,7 +193,12 @@ BENCHMARK_MODULES = ["repro_torch.benchmarks." + m for m in
                       "fig9_dense_models", "perf_writer",
                       "fig7_buffer_sweep", "fig8_parallel_writes",
                       "fig2_baseline_util", "fig10_parallel_restore",
-                      "fig_delta", "fig_snapshot", "beyond_quant")]
+                      "fig_delta", "fig_snapshot", "beyond_quant",
+                      "fig10_moe", "table1_bandwidth", "fig12_projection",
+                      "fig13_tiered_upload", "fig_peer", "fig_serve",
+                      "roofline", "make_tables")]
+#: the figures of the last slice, each imported in a fresh interpreter
+LAST_FIGURES = BENCHMARK_MODULES[-8:]
 
 
 def test_benchmark_modules_import_no_jax():
@@ -210,7 +217,25 @@ for name in {BENCHMARK_MODULES!r}:
 from repro_torch.benchmarks import run
 assert sorted("repro_torch.benchmarks." + m for _, m in run.FIGURES) == \\
     sorted(n for n in {BENCHMARK_MODULES!r}
-           if not n.endswith((".common", ".run")))
+           if not n.endswith((".common", ".run", ".make_tables")))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in {FORBIDDEN!r} + ("benchmarks",))
+assert not bad, bad
+print("ok")
+"""
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("module", LAST_FIGURES)
+def test_last_figure_module_imports_no_jax(module):
+    """Each module of the last slice of figures, imported alone in a
+    fresh interpreter, loads neither JAX nor the JAX package nor the
+    reference's ``benchmarks``."""
+    code = f"""
+import importlib, sys
+importlib.import_module({module!r})
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in {FORBIDDEN!r} + ("benchmarks",))
 assert not bad, bad
