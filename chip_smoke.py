@@ -43,14 +43,25 @@ Phases, each of which exits non-zero on failure:
    flash_attention launch counts read around it; then a second, warm
    bf16 loss and f32 forward timed beside the first, with B3's share of
    each;
-7. quantized save: the restored state saved with ``quantize=True``
-   (int8 per block of 4096, scales from ckpt_pack_blocks on the card;
-   its launch count read around the save), each record's kernel amax
-   held bit for bit against the host amax of the same values, the int8
-   and scale bytes on disk against host-amax quantization, a restore
-   onto the card within the quantizer's per-block bound, then a
-   ``delta_quantize`` chain (2 layers at published widths, device-dirty)
-   restored within the same bound on its q8 spans;
+7. quantized save: first the quantize kernel (ckpt_quant_blocks, B2's
+   quantize mode) held bit-equal to its plain version on the card — on
+   the largest record of each dtype of the state, a ragged cut of each,
+   and tie, zero, -0.0, subnormal and ragged blocks in f32, bf16 and f16
+   (on NaN and inf blocks the scales only) — and timed; then the
+   restored state saved with ``quantize=True`` (int8 per block of 4096,
+   quantized on the card before the snapshot: its launches read around
+   the save, no host quantize, ``d2h_bytes`` the quantized stream's,
+   no device memory of the save held once its snapshot is released),
+   each record's B2 amax (the route the save took before; a check, its
+   launches not counted, so B2's pack mode reports the 0 launches of
+   the paths) held bit for bit against the host amax, the int8 and
+   scale bytes on disk against
+   host quantization, a restore onto the card dequantized there within
+   the quantizer's per-block bound and bit-equal to the host dequantize
+   on the sampled records, the seconds, bytes and peak device memory
+   printed; then a ``delta_quantize`` chain (2 layers at published
+   widths, device-dirty) restored within the same bound on its q8
+   spans;
 8. mamba2_370m at full width: init from a seed, a checkpoint round trip
    through the engine, the kernel forward at batch 4 x 2048 against the
    plain hook (ssd_intra_chunk launch counts read around it), a second,
@@ -134,13 +145,15 @@ Phases, each of which exits non-zero on failure:
 14. the paper's figures (``repro_torch.benchmarks.run``, in this process,
    on ``cuda``, at their quick sizes; fig11 trains ``gpt3_0_7b`` at its
    published widths cut to 1 of 24 layers and 4 steps a cell,
-   perf_writer at 128 MiB): B2 on beyond_quant's leaves and B1 on
-   fig_snapshot's dirty blob first held against their plain versions;
+   perf_writer at 128 MiB): B2 and its quantize mode on beyond_quant's
+   leaves and B1 on fig_snapshot's dirty blob first held against their
+   plain versions;
    every figure's CSV rows and wall time printed; fig_delta's,
    fig_snapshot's and fig10's restores bit-exact; B1 launched once per
-   delta save of fig_snapshot's device-dirty chains and B2 once per
-   leaf of beyond_quant's int8 save (added to the kernels line), and
-   the amax of that save equal to the plain version's; no figure
+   delta save of fig_snapshot's device-dirty chains and B2's quantize
+   mode once per leaf of beyond_quant's int8 save (added to the kernels
+   line), and the scales of that save equal to the plain version's; no
+   figure
    holding more on the disk and in /dev/shm at once than min(75 % of
    the free disk, 90 % of phase 4's peak). The figures' verdicts are
    printed as measurements, never held.
@@ -285,7 +298,7 @@ def _zero_counts():
     from repro_torch.kernels import ckpt_pack as cp
     from repro_torch.kernels import ops
     for w in (cp.ckpt_pack_blocks, cp.ckpt_pack_dirty_blocks,
-              ops.flash_attention, ops.ssd_intra_chunk):
+              cp.ckpt_quant_blocks, ops.flash_attention, ops.ssd_intra_chunk):
         w.launches = 0
 
 
@@ -1016,11 +1029,113 @@ def _same_bits(a, b) -> bool:
         torch.equal(_ints(a.detach()), _ints(b.detach()))
 
 
-def quantized_save(cfg, state, extras, device) -> int:
-    """Phase 7 (a)-(f): save the restored ``cfg`` state through an engine
-    with ``FastPersistConfig(quantize=True)``, B2's launches read around
-    the save, and hold the result against host quantization and the live
-    state. Returns the ckpt_pack_blocks launch count of the save."""
+def _quant_specials(dtype, device):
+    """(finite cases, non-finite case) for the quantize kernel, as flat
+    ``dtype`` tensors on ``device``, each ending in a ragged tail: tie
+    blocks whose values divide exactly to k + 0.5 at scales 1, 2 and 1/2
+    (half to even goes down for even k, up for odd k), an all-zero block
+    and a -0.0 tail, subnormals (of f32 for f32 and bf16, of f16 for
+    f16) and a normal block; then blocks with NaN, inf and -inf."""
+    import torch
+    from repro_torch.core.quant import BLOCK
+    gen = torch.Generator(device=device).manual_seed(24)
+
+    def normal(n, mul=1.0):
+        return torch.randn(n, generator=gen, device=device) * mul
+
+    k = torch.arange(-126, 127, device=device, dtype=torch.float32)
+    ties = []
+    for sc in (1.0, 2.0, 0.5):
+        blk = (k.repeat(-(-(BLOCK - 2) // k.numel()))[:BLOCK - 2] + 0.5) * sc
+        ties.append(torch.cat([blk, blk.new_tensor([127 * sc, -127 * sc])]))
+    tiny = 1e-6 if dtype == torch.float16 else 1e-39
+    finite = torch.cat(ties + [normal(BLOCK).zero_(), normal(BLOCK, tiny),
+                               normal(BLOCK, 5.0), normal(37, tiny),
+                               normal(5).zero_().neg_()]).to(dtype)
+    if not torch.equal(finite[:3 * BLOCK].float(), torch.cat(ties)):
+        fail(f"quantize specials: the ties are not exact in {dtype}")
+    odd = normal(3 * BLOCK + 21)
+    odd[5], odd[BLOCK + 9], odd[2 * BLOCK + 3] = (float("nan"), float("inf"),
+                                                  -float("inf"))
+    return finite, odd.to(dtype)
+
+
+def check_quant(leaves, qnames, device) -> dict:
+    """Phase 7 (a), before the save: the quantize kernel (B2's quantize
+    mode) held bit-equal to its plain version on the card — on the
+    largest record of each dtype of phase 7's state, a ragged one cut
+    from it, and ``_quant_specials`` in f32, bf16 and f16 (the int8 values
+    and the scales bit for bit; on the NaN and inf blocks the scales
+    only, C.10) — then timed on the largest f32 record beside its plain
+    version and its bytes bound. Returns its entry of the kernels line
+    (launches filled in after the save)."""
+    import torch
+    from repro_torch.core import quant
+    from repro_torch.kernels import ckpt_pack as cp
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ckpt_quant_plain
+
+    def held(name, x, scales_only=False):
+        q, s = ops.ckpt_quant(x, block=quant.BLOCK)
+        flat = x.reshape(-1)
+        pq, ps = ckpt_quant_plain(cp.to_blocks(flat, quant.BLOCK))
+        torch.cuda.synchronize()
+        pq = pq.reshape(-1)[:flat.numel()]
+        if not torch.equal(_ints(s), _ints(ps)):
+            fail(f"ckpt_quant {name}: scales differ from the plain version")
+        if not scales_only and not torch.equal(q, pq):
+            fail(f"ckpt_quant {name}: {int((q != pq).sum())} int8 values "
+                 f"differ from the plain version")
+        print(f"  ok ckpt_quant {name}: {s.numel()} blocks, "
+              f"{'scales' if scales_only else 'int8 values and scales'} "
+              f"bit-equal", flush=True)
+
+    print("phase 7: the quantize kernel (ckpt_quant_blocks) against its "
+          "plain version", flush=True)
+    by_dtype = {}
+    for name, t in leaves:
+        if name in qnames and (t.dtype not in by_dtype
+                               or t.numel() > by_dtype[t.dtype][1].numel()):
+            by_dtype[t.dtype] = (name, t)
+    for name, t in by_dtype.values():
+        held(f"{name} {str(t.dtype)[6:]} {tuple(t.shape)}", t)
+        cut = t.reshape(-1)[:t.numel() // 3 + 1001]
+        held(f"{name} cut to {cut.numel()} (ragged)", cut)
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        finite, odd = _quant_specials(dt, device)
+        held(f"{str(dt)[6:]} ties at scales 1, 2, 1/2, zeros, -0.0, "
+             f"subnormals, ragged", finite)
+        held(f"{str(dt)[6:]} NaN / inf / -inf blocks", odd, scales_only=True)
+
+    _, big = by_dtype[torch.float32]
+    n = big.numel()
+    n_bytes = n * (big.element_size() + 1) + 4 * -(-n // quant.BLOCK)
+    ms = _cuda_ms(lambda: ops.ckpt_quant(big, block=quant.BLOCK))
+    x2d = cp.to_blocks(big.reshape(-1), quant.BLOCK)
+    plain = _cuda_ms(lambda: ckpt_quant_plain(x2d))
+    del x2d
+    entry = {"name": "ckpt_quant_blocks", "route": "cuda",
+             "source": f"{CSRC}/ckpt_pack.cu",
+             "replaces": "src/repro/kernels/ckpt_pack.py:56",
+             "launches": 0, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
+             "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+             "bound_by": "bytes", "library_ms": None,
+             "shape": f"f32 {tuple(big.shape)}", "bytes": n_bytes,
+             "sampled": [name for name, _ in by_dtype.values()]}
+    print(f"  time ckpt_quant_blocks {entry['shape']}: {ms:.3f} ms (plain "
+          f"{plain:.3f} ms, bytes bound {entry['bound_ms']:.3f} ms, "
+          f"{n_bytes / ms / 1e6:.0f} GB/s)", flush=True)
+    return entry
+
+
+def quantized_save(cfg, state, extras, device):
+    """Phase 7 (a)-(f): the quantize kernel held against its plain version
+    (``check_quant``), then the restored ``cfg`` state saved through an
+    engine with ``FastPersistConfig(quantize=True)``, the kernels' launches
+    read around the save, and the result held against host quantization
+    and the live state. Returns (the ckpt_quant_blocks and the
+    ckpt_pack_blocks launches of the save, the kernels-line entry of
+    ckpt_quant_blocks); the launches of the checks are not counted."""
     import gc
 
     import numpy as np
@@ -1039,6 +1154,9 @@ def quantized_save(cfg, state, extras, device) -> int:
     leaves = flatten(state)
     qnames = [n for n, t in leaves
               if quant.quantizable(dtype_name(t), t.numel())]
+    gc.collect()                   # earlier phases' states held in cycles
+    torch.cuda.reset_peak_memory_stats()
+    entry = check_quant(leaves, qnames, device)
     full = sum(t.numel() * t.element_size() for _, t in leaves)
     want_bytes = sum(t.numel() + 4 * -(-t.numel() // quant.BLOCK)
                      if n in qnames else t.numel() * t.element_size()
@@ -1053,62 +1171,93 @@ def quantized_save(cfg, state, extras, device) -> int:
             fp=FastPersistConfig(quantize=True, topology=Topology(
                 dp_degree=4, ranks_per_node=4)))
         eng = CheckpointEngine(spec)
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
         _zero_counts()             # just before the quantized save
         t0 = time.perf_counter()
-        st = eng.save(state, extras["step"], extras).wait()
+        h = eng.save(state, extras["step"], extras)
+        eng.wait_snapshot()
+        held = torch.cuda.memory_allocated() - base
+        st = h.wait()
         wall = time.perf_counter() - t0
-        launches = cp.ckpt_pack_blocks.launches
+        launches = cp.ckpt_quant_blocks.launches
+        packs = cp.ckpt_pack_blocks.launches
         eng.close()
-        del eng                    # frees the save's 23 GB staging arena
+        del eng                    # frees the save's staging arena
         gc.collect()
         snap_s = st.serialize_seconds - st.quantize_seconds
-        print(f"  (a) save: {launches} ckpt_pack_blocks launches; "
-              f"{st.total_bytes} B on disk vs {full} B full "
-              f"({full / st.total_bytes:.3f}x smaller); snapshot "
-              f"{snap_s:.3f} s, quantize {st.quantize_seconds:.3f} s, "
-              f"persist {st.seconds:.3f} s, commit "
-              f"{st.commit_seconds:.3f} s, wall {wall:.3f} s; writers "
-              f"{st.n_writers}, o_direct "
-              f"{all(w.direct for w in st.per_writer)}", flush=True)
-        if launches != len(qnames):
-            fail(f"ckpt_pack_blocks launched {launches} times on the "
-                 f"quantized save; expected {len(qnames)}")
-        if sorted(st.device_amax) != sorted(qnames):
-            fail("the save's device amax does not cover exactly the "
+        print(f"  (a) save: {launches} ckpt_quant_blocks launches, {packs} "
+              f"ckpt_pack_blocks; {st.total_bytes} B on disk vs {full} B "
+              f"full ({full / st.total_bytes:.3f}x smaller); d2h_bytes "
+              f"{st.d2h_bytes}; snapshot {snap_s:.3f} s, quantize "
+              f"{st.quantize_seconds:.3f} s, persist {st.seconds:.3f} s, "
+              f"commit {st.commit_seconds:.3f} s, wall {wall:.3f} s; "
+              f"writers {st.n_writers}, o_direct "
+              f"{all(w.direct for w in st.per_writer)}; device memory held "
+              f"past the snapshot {held} B", flush=True)
+        smallest = min(t.numel() for n, t in leaves if n in qnames)
+        if not 0 <= held < smallest:
+            fail(f"the card's memory moved by {held} B across the save's "
+                 f"snapshot: expected 0, and under the int8 values of its "
+                 f"smallest record ({smallest} B)")
+        if launches != len(qnames) or packs:
+            fail(f"the quantized save launched ckpt_quant_blocks {launches} "
+                 f"times and ckpt_pack_blocks {packs}; expected "
+                 f"{len(qnames)} and 0")
+        if st.quantize_seconds != 0.0:
+            fail(f"the quantized save of state on the card quantized on "
+                 f"the host for {st.quantize_seconds} s")
+        if sorted(st.device_scales) != sorted(qnames):
+            fail("the save's device scales do not cover exactly the "
                  "quantizable records")
-        if st.total_bytes != want_bytes:
-            fail(f"{st.total_bytes} B on disk; the layout gives "
-                 f"{want_bytes}")
+        if st.total_bytes != want_bytes or st.d2h_bytes != want_bytes:
+            fail(f"{st.total_bytes} B on disk and {st.d2h_bytes} B over "
+                 f"PCIe; the quantized layout gives {want_bytes}")
 
-        # (b), (c): kernel amax vs host amax, disk bytes vs host quantize
+        # (b) the route saves took before the quantize mode, B2's amax
+        # on the card (``device_block_amax``, the reference's device
+        # half), held bit-equal to the host amax: a check, so its
+        # launches are not counted; (c) the disk bytes against host
+        # quantization of the same values, an oracle that runs no kernel
         rd = CheckpointEngine(CheckpointSpec(directory=tmp))
         t0 = time.perf_counter()
+        amax0 = cp.ckpt_pack_blocks.launches
         for name, t in leaves:
             if name not in qnames:
                 continue
             host = t.detach().cpu()
             amax = quant.block_amax(host)
-            dev = st.device_amax[name]
+            dev = quant.device_block_amax(t)
             nan = np.isnan(amax)
             if not (np.array_equal(np.isnan(dev), nan) and np.array_equal(
                     dev[~nan].view(np.uint32), amax[~nan].view(np.uint32))):
-                fail(f"{name}: the kernel's amax differs from the host "
-                     f"amax of the same values")
+                fail(f"{name}: B2's amax differs from the host amax of the "
+                     f"same values")
             q, scale = quant._blockwise(host, amax=amax)
             q_disk = rd.load_tensor(name + "#q8").reshape(-1).numpy()
             s_disk = rd.load_tensor(name + "#scale").numpy()
-            ok = s_disk.tobytes() == scale.tobytes()
+            ok = s_disk.tobytes() == scale.tobytes() == \
+                st.device_scales[name].tobytes()
             finite = ~np.isnan(host.float().reshape(-1).numpy())
             ok = ok and np.array_equal(q_disk[finite], q[finite])
             if not ok:
                 fail(f"{name}: int8/scale bytes on disk differ from "
-                     f"host-amax quantization")
-        print(f"  (b) kernel amax bit-equal to the host amax on all "
-              f"{len(qnames)} records; (c) their #q8 and #scale bytes on "
-              f"disk equal host-amax quantization "
+                     f"host quantization")
+        amax_launches = cp.ckpt_pack_blocks.launches - amax0
+        print(f"  (b) B2's amax ({amax_launches} ckpt_pack_blocks launches, "
+              f"not counted) "
+              f"bit-equal to the host amax on all {len(qnames)} records; "
+              f"(c) their #q8 and #scale bytes on disk (and the save's "
+              f"device scales) equal host quantization "
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        if amax_launches != len(qnames):
+            fail(f"(b) launched ckpt_pack_blocks {amax_launches} times; "
+                 f"expected {len(qnames)}")
 
-        # (d) restore onto the card, within the per-block bound
+        # (d) restore onto the card, dequantized there: within the
+        # per-block bound of the live state, and bit-equal to the host
+        # dequantize of the disk bytes on the sampled records
         like = init_train_state(build_model(cfg), 0, "meta")
         t0 = time.perf_counter()
         got, man = rd.load(like=like, device=device, parallel="auto")
@@ -1116,9 +1265,11 @@ def quantized_save(cfg, state, extras, device) -> int:
         t_restore = time.perf_counter() - t0
         t_deq = rd._backend._inner.last_dequantize_seconds
         worst = {}
-        for (name, a), (_, b) in zip(flatten(got), leaves):
-            if a.dtype != b.dtype or a.shape != b.shape:
-                fail(f"restored {name} is {a.dtype}{tuple(a.shape)}")
+        restored = dict(flatten(got))
+        for (name, a), (_, b) in zip(restored.items(), leaves):
+            if a.dtype != b.dtype or a.shape != b.shape or not a.is_cuda:
+                fail(f"restored {name} is {a.dtype}{tuple(a.shape)} on "
+                     f"{a.device}")
             if name in qnames:
                 bad, err = _q8_bound(b, a)
                 if bad:
@@ -1127,44 +1278,51 @@ def quantized_save(cfg, state, extras, device) -> int:
                 worst[str(a.dtype)] = max(worst.get(str(a.dtype), 0.0), err)
             elif not _same_bits(a, b):
                 fail(f"restored {name} (not quantized) is not bit-equal")
+        for name in entry["sampled"]:
+            a = restored[name]
+            want = quant._deblock(rd.load_tensor(name + "#q8"),
+                                  rd.load_tensor(name + "#scale"),
+                                  dtype_name(a))
+            if not _same_bits(a.cpu().reshape(-1), want):
+                fail(f"restored {name}: the dequantize on the card is not "
+                     f"bit-equal to the host's")
         if man.extras.get("step") != extras["step"] \
                 or man.extras.get("data") != extras["data"]:
             fail(f"restored extras {man.extras}; expected {extras}")
         print(f"  (d) restored onto {device} in {t_restore:.3f} s "
-              f"(dequantize {t_deq:.3f} s): {len(qnames)} records within "
-              f"the per-block bound (max abs err {worst}), the rest "
-              f"bit-equal; step {man.extras['step']}, data "
+              f"(dequantize on the card {t_deq:.3f} s): {len(qnames)} "
+              f"records within the per-block bound (max abs err {worst}), "
+              f"{entry['sampled']} bit-equal to the host dequantize, the "
+              f"rest bit-equal; step {man.extras['step']}, data "
               f"{man.extras['data']}", flush=True)
-        print(f"  (e) bytes on disk {st.total_bytes} vs keyframe {full}; "
-              f"(f) seconds: quantize {st.quantize_seconds:.3f} persist "
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  (e) bytes on disk {st.total_bytes} vs keyframe {full}, "
+              f"d2h_bytes {st.d2h_bytes}; (f) seconds: snapshot "
+              f"{snap_s:.3f} quantize {st.quantize_seconds:.3f} persist "
               f"{st.seconds:.3f} commit {st.commit_seconds:.3f} restore "
-              f"{t_restore:.3f} dequantize {t_deq:.3f}", flush=True)
-        del got
+              f"{t_restore:.3f} dequantize {t_deq:.3f}; peak device memory "
+              f"{peak} B", flush=True)
+        del got, restored
         rd.close()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # B2's time inside the save (its 44 launches; comparison launches,
-    # after the count was read), and bf16 against f32 packed output on
-    # the largest f32 record
+    # the quantize kernel's time inside the save (its launches; timing
+    # launches, after the counts were read) beside the route it replaced
     torch.cuda.synchronize()
-    ms = _cuda_ms(lambda: quant.launch_amax(leaves), iters=3)
-    n_bytes = sum(t.numel() * (t.element_size() + 2)
-                  + 4 * -(-t.numel() // quant.BLOCK)
-                  for n, t in leaves if n in qnames)
-    big = max((t for n, t in leaves
-               if n in qnames and t.dtype == torch.float32),
-              key=lambda t: t.numel())
-    # in turns: bf16, f32, f32, bf16 packed output
-    outs = [(str(od)[6:], _cuda_ms(lambda od=od: ops.ckpt_pack(
-        big, out_dtype=od, block=quant.BLOCK))) for od in
-        (torch.bfloat16, torch.float32, torch.float32, torch.bfloat16)]
-    print(f"  B2 in the save: {launches} launches in {ms:.3f} ms "
-          f"({n_bytes} B, bytes bound "
-          f"{n_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms); on the "
-          f"{tuple(big.shape)} f32 record, by packed dtype: "
-          + ", ".join(f"{od} {t:.3f} ms" for od, t in outs), flush=True)
-    return launches
+    qleaves = [t for n, t in leaves if n in qnames]
+    ms = _cuda_ms(lambda: [ops.ckpt_quant(t, block=quant.BLOCK)
+                           for t in qleaves], iters=3)
+    n_bytes = sum(t.numel() * (t.element_size() + 1)
+                  + 4 * -(-t.numel() // quant.BLOCK) for t in qleaves)
+    amax_ms = _cuda_ms(lambda: [quant.launch_block_amax(t) for t in qleaves],
+                       iters=3)
+    print(f"  B2's quantize mode in the save: {launches} launches in "
+          f"{ms:.3f} ms ({n_bytes} B, bytes bound "
+          f"{n_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms); B2's amax on the same "
+          f"records, the route it replaced, {amax_ms:.3f} ms", flush=True)
+    entry["save_ms"], entry["save_bytes"] = ms, n_bytes
+    return launches, packs, entry
 
 
 def quantized_chain(cfg, device):
@@ -2708,10 +2866,11 @@ class _DiskPeak:
 
 
 def _figure_kernels(device) -> dict:
-    """B2 and B1 at the shapes phase 14's figures give them, held against
-    their plain versions before the figures run (these launches stay out
-    of the counts): B2 on beyond_quant's four leaves (bf16 and f32, at
-    the quantizer's block with a ragged tail), B1 on fig_snapshot's f32
+    """B2, its quantize mode and B1 at the shapes phase 14's figures give
+    them, held against their plain versions before the figures run (these
+    launches stay out of the counts): B2 and the quantize mode on
+    beyond_quant's four leaves (bf16 and f32, at the quantizer's block
+    with a ragged tail), B1 on fig_snapshot's f32
     dirty blob at the device-dirty block, against its image before a
     step that touches a tenth of its pages. Returns the largest error by
     kernel name."""
@@ -2722,11 +2881,19 @@ def _figure_kernels(device) -> dict:
     from repro_torch.core.checkpointer import FastPersistConfig
     from repro_torch.kernels import ckpt_pack as cp
     from repro_torch.kernels import ops
-    from repro_torch.kernels.ref import ckpt_pack_dirty_plain, ckpt_pack_plain
-    errs = {}
+    from repro_torch.kernels.ref import (ckpt_pack_dirty_plain,
+                                         ckpt_pack_plain, ckpt_quant_plain)
+    errs = {"ckpt_quant_blocks": 0.0}
     for name, leaf in beyond_quant.synth_moments(beyond_quant.QUICK_MB,
                                                  device).items():
         x2d = ops._to_blocks(leaf.reshape(-1), quant.BLOCK)
+        q, scale = cp.ckpt_quant_blocks(leaf.reshape(-1), block=quant.BLOCK)
+        pq, ps = ckpt_quant_plain(x2d)
+        torch.cuda.synchronize()
+        if not (torch.equal(q, pq.reshape(-1)[:leaf.numel()])
+                and torch.equal(_ints(scale), _ints(ps))):
+            fail(f"phase 14: ckpt_quant_blocks on beyond_quant's {name} "
+                 f"differs from the plain version")
         got = cp.ckpt_pack_blocks(x2d, out_dtype=torch.bfloat16)
         want = ckpt_pack_plain(x2d, out_dtype=torch.bfloat16)
         torch.cuda.synchronize()
@@ -2736,7 +2903,8 @@ def _figure_kernels(device) -> dict:
                                        err)
         print(f"  ok ckpt_pack_blocks on beyond_quant's {name} "
               f"{leaf.dtype} ({leaf.numel()} elements, {x2d.shape[0]} "
-              f"blocks of {quant.BLOCK}): max_abs_err {err}", flush=True)
+              f"blocks of {quant.BLOCK}): max_abs_err {err}; "
+              f"ckpt_quant_blocks bit-equal", flush=True)
     rng = np.random.default_rng(23)
     mb = fig_snapshot.QUICK_DIRTY_MB
     w = torch.from_numpy(rng.standard_normal(mb * (1 << 20) // 4)
@@ -2757,30 +2925,29 @@ def _figure_kernels(device) -> dict:
     return errs
 
 
-def _hold_quant_amax(bq: dict, device):
-    """Fail unless every block amax beyond_quant's int8 save took from B2
-    on the card equals the plain version's on the same leaves (drawn
-    again from the figure's seed)."""
+def _hold_quant_scales(bq: dict, device):
+    """Fail unless every block scale beyond_quant's int8 save took from
+    the quantize kernel on the card equals the plain version's on the
+    same leaves (drawn again from the figure's seed)."""
     import numpy as np
-    import torch
     from repro_torch.benchmarks import beyond_quant
     from repro_torch.core import quant
     from repro_torch.kernels import ops
-    from repro_torch.kernels.ref import ckpt_pack_plain
+    from repro_torch.kernels.ref import ckpt_quant_plain
     from repro_torch.tree import flatten
-    used = bq[True].device_amax
+    used = bq[True].device_scales
     leaves = dict(flatten(beyond_quant.synth_moments(beyond_quant.QUICK_MB,
                                                      device)))
     if sorted(used) != sorted(leaves):
-        fail(f"phase 14: beyond_quant's int8 save took B2's amax for "
-             f"{sorted(used)}; expected {sorted(leaves)}")
+        fail(f"phase 14: beyond_quant's int8 save took scales from the "
+             f"card for {sorted(used)}; expected {sorted(leaves)}")
     for name, leaf in leaves.items():
-        want = ckpt_pack_plain(ops._to_blocks(leaf.reshape(-1), quant.BLOCK),
-                               out_dtype=torch.bfloat16)[1].cpu().numpy()
-        if not np.array_equal(np.asarray(used[name]), want):
-            fail(f"phase 14: beyond_quant's int8 save of {name} took a "
-                 f"block amax that differs from the plain version's")
-    print(f"  ok beyond_quant's int8 save: the block amax of "
+        want = ckpt_quant_plain(ops._to_blocks(leaf.reshape(-1),
+                                               quant.BLOCK))[1]
+        if np.asarray(used[name]).tobytes() != want.cpu().numpy().tobytes():
+            fail(f"phase 14: beyond_quant's int8 save of {name} took "
+                 f"block scales that differ from the plain version's")
+    print(f"  ok beyond_quant's int8 save: the block scales of "
           f"{sorted(leaves)} equal the plain version's", flush=True)
 
 
@@ -2891,13 +3058,15 @@ def paper_figures(device, disk_peak: int, times: dict) -> dict:
     warm and dedup fields must hold (``_hold_tier_figures``), and the
     roofline's ``dominant`` must equal the dry run's (``_hold_tables``,
     which prints every table); B1 must launch once per delta save
-    of fig_snapshot's device-dirty chains and B2 once per leaf of
-    beyond_quant's int8 save; no figure may hold more on the disk at once
-    than ``_disk_budget(disk_peak)``. The figures' verdicts are printed,
-    never held. B1 and B2 are first held against their plain versions
-    at the figures' shapes, and the amax of beyond_quant's int8 save
-    against the plain ones. Returns (the phase's launches by kernel
-    name, the largest error of those checks by kernel name)."""
+    of fig_snapshot's device-dirty chains and B2's quantize mode once
+    per leaf of beyond_quant's int8 save (B2 itself not at all); no
+    figure may hold more on the disk at once than
+    ``_disk_budget(disk_peak)``. The figures' verdicts are printed,
+    never held. B1, B2 and its quantize mode are first held against
+    their plain versions at the figures' shapes, and the scales of
+    beyond_quant's int8 save against the plain ones. Returns (the
+    phase's launches by kernel name, the largest error of those checks
+    by kernel name)."""
 
     from repro_torch.benchmarks import run as bench
     from repro_torch.kernels import ckpt_pack as cp
@@ -2925,7 +3094,8 @@ def paper_figures(device, disk_peak: int, times: dict) -> dict:
             failed += bad
         launches = {"ckpt_pack_dirty_blocks":
                     cp.ckpt_pack_dirty_blocks.launches,
-                    "ckpt_pack_blocks": cp.ckpt_pack_blocks.launches}
+                    "ckpt_pack_blocks": cp.ckpt_pack_blocks.launches,
+                    "ckpt_quant_blocks": cp.ckpt_quant_blocks.launches}
         if not failed:
             _hold_tier_figures(results, times)
             _hold_tables(results, dry)
@@ -2969,17 +3139,20 @@ def paper_figures(device, disk_peak: int, times: dict) -> dict:
           f"{snap['sparse_pcie_x']}), fig10 4 readers vs 1 "
           f"{f10['speedup_4readers_vs_single']}x", flush=True)
     n_b1 = snap["steps"] * len(snap["dirty_cells"])
-    n_b2 = len(results["beyond_quant"][True].device_amax)
+    n_b2q = len(results["beyond_quant"][True].device_scales)
     print(f"  launches in phase 14: {launches} (expected B1 {n_b1}: one "
-          f"per delta save of fig_snapshot's device-dirty chains; B2 "
-          f"{n_b2}: one per leaf of beyond_quant's int8 save)", flush=True)
+          f"per delta save of fig_snapshot's device-dirty chains; B2's "
+          f"quantize mode {n_b2q}: one per leaf of beyond_quant's int8 "
+          f"save; B2 0)", flush=True)
     if launches["ckpt_pack_dirty_blocks"] != n_b1 or n_b1 < 1:
         fail(f"phase 14: ckpt_pack_dirty_blocks launched "
              f"{launches['ckpt_pack_dirty_blocks']} times; expected {n_b1}")
-    if launches["ckpt_pack_blocks"] != n_b2 or n_b2 < 1:
-        fail(f"phase 14: ckpt_pack_blocks launched "
-             f"{launches['ckpt_pack_blocks']} times; expected {n_b2}")
-    _hold_quant_amax(results["beyond_quant"], device)
+    if launches["ckpt_quant_blocks"] != n_b2q or n_b2q < 1 \
+            or launches["ckpt_pack_blocks"]:
+        fail(f"phase 14: ckpt_quant_blocks launched "
+             f"{launches['ckpt_quant_blocks']} times and ckpt_pack_blocks "
+             f"{launches['ckpt_pack_blocks']}; expected {n_b2q} and 0")
+    _hold_quant_scales(results["beyond_quant"], device)
     return launches, errs
 
 
@@ -3094,7 +3267,10 @@ def main():
     del batch
     torch.cuda.empty_cache()
     lap("6")
-    launches["ckpt_pack_blocks"] = quantized_save(cfg, state, extras, device)
+    n_quant, n_pack, quant_entry = quantized_save(cfg, state, extras, device)
+    launches["ckpt_quant_blocks"] = n_quant
+    launches["ckpt_pack_blocks"] += n_pack
+    entries.append(quant_entry)
     del state
     torch.cuda.empty_cache()
     quantized_chain(cfg, device)
@@ -3150,7 +3326,8 @@ def main():
         {k: v for k, v in e.items()
          if k not in ("shape", "bytes", "bytes_per_head", "flops",
                       "graph_ms", "library_graph_ms", "zamba2",
-                      "zamba2_ms", "internvl2", "internvl2_ms")}
+                      "zamba2_ms", "internvl2", "internvl2_ms", "sampled",
+                      "save_ms", "save_bytes")}
         for e in entries]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,7 @@
 through the full FastPersist write path — S_C shrinks ~3.5×, so Eq. 1's
 required bandwidth shrinks by the same factor (the counterpart of
 ``benchmarks/beyond_quant.py``). The state is drawn on ``device``; on the
-card each leaf's block amax comes from the ckpt_pack_blocks kernel."""
+card each leaf is quantized by the ckpt_quant kernel."""
 import os
 import shutil
 

@@ -29,9 +29,10 @@ onto any reader configuration. Two restore modes:
 
 A copy of ``repro.core.checkpointer`` on torch tensors: the on-disk
 format is the reference's byte for byte. Quantized saves (``quantize``,
-int8 per-block, lossy) take each block's scale from the
-``ckpt_pack_blocks`` CUDA kernel for state on the card, launched before
-the snapshot is released to the trainer. ``read_owned`` (one rank's
+int8 per-block, lossy) quantize state on the card with the
+``ckpt_quant`` CUDA kernel before the snapshot, which then moves only
+the int8 values and the scales; a restore onto the card dequantizes
+there (``load(device=...)``). ``read_owned`` (one rank's
 owned spans, DESIGN.md §7) and :func:`allgather_owned` read the same
 bytes as the reference's.
 """
@@ -47,6 +48,7 @@ from dataclasses import dataclass, field, replace
 from itertools import groupby
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch.core import layout, quant
@@ -61,9 +63,10 @@ from repro_torch.core.reader import combine_span_crcs, read_stream
 from repro_torch.core.serializer import (ByteStreamView, Manifest,
                                          TensorRecord, begin_snapshot,
                                          decode_record, deserialize,
-                                         serialize, tensor_spans)
+                                         serialize, serialize_leaves,
+                                         tensor_spans)
 from repro_torch.core.writer import WriteStats, WriterConfig, write_stream
-from repro_torch.tree import flatten, unflatten
+from repro_torch.tree import flatten, treedef_str, unflatten
 
 
 class _GatedSegments:
@@ -220,13 +223,14 @@ class SaveStats:
     snapshot_seconds: float = 0.0
     #: chunk count of the snapshot (0 = monolithic copy)
     snapshot_chunks: int = 0
-    #: wall time of the host int8 quantizer (``quantize`` saves; part of
-    #: ``serialize_seconds``)
+    #: wall time of int8 quantization on the host (``quantize`` saves of
+    #: host state: the ckpt_quant kernel's plain version; part of
+    #: ``serialize_seconds``); 0 for state on the card
     quantize_seconds: float = 0.0
-    #: the per-block amax every scale of a ``quantize`` save came from,
-    #: by record name, for the records whose amax the ckpt_pack_blocks
-    #: kernel computed on the card (empty for host state)
-    device_amax: Dict[str, object] = field(default_factory=dict)
+    #: the per-block scales of a ``quantize`` save that the ckpt_quant
+    #: kernel computed on the card, by record name (host copies of the
+    #: snapshot's ``#scale`` records; empty for host state)
+    device_scales: Dict[str, object] = field(default_factory=dict)
 
     @property
     def gbps(self):
@@ -335,20 +339,15 @@ class FastPersistCheckpointer:
         device_dirty = bool(self.config.device_dirty
                             and self._arena is not None)
         # chunked snapshot (DESIGN.md §10): arena-only, and quantized
-        # saves stay monolithic (the quantizer reads the whole stream)
+        # saves stay monolithic, as the reference's
         chunk_bytes = 0
         if (self.config.snapshot_chunk_mb > 0 and self._arena is not None
                 and not self.config.quantize):
             chunk_bytes = int(self.config.snapshot_chunk_mb) << 20
         notify = self.on_snapshot
         self.on_snapshot = None
-        # the scales of a quantized save come from the ckpt_pack_blocks
-        # kernel for leaves on the card: enqueued on the compute stream
-        # BEFORE the snapshot's ready event, so they read exactly the
-        # values the snapshot copies, and brought to the host before
-        # notify() lets the trainer update the state in place
-        dev_amax = (quant.launch_amax(flatten(state))
-                    if self.config.quantize else {})
+        quantize_s = 0.0
+        dev_scales = {}
         progress = None
         fill_thread = None
         if chunk_bytes:
@@ -365,26 +364,38 @@ class FastPersistCheckpointer:
             fill_thread = threading.Thread(target=_fill_job,
                                            name="fp-snapshot", daemon=True)
             fill_thread.start()
+        elif self.config.quantize:
+            # the snapshot copies int8 values and scales: ckpt_quant
+            # quantizes each float leaf on the card, enqueued on the
+            # compute stream BEFORE the snapshot's ready event into new
+            # storage, so the bytes are the values' at that event even
+            # when the trainer updates the state in place after notify()
+            leaves, dtypes, quantize_s = quant.quantize_leaves(
+                flatten(state))
+            manifest, buffers = serialize_leaves(
+                leaves, treedef_str(state), arena=self._arena, dtypes=dtypes)
+            dev_scales = {n[:-len("#scale")]: np.array(b)
+                          for (n, t), b in zip(leaves, buffers)
+                          if n.endswith("#scale")
+                          and isinstance(t, torch.Tensor) and t.is_cuda}
+            # the arena holds their bytes now: free the card's int8
+            # values and scales before the trainer runs on
+            del leaves
+            if notify is not None:
+                notify()
         else:
             manifest, buffers = serialize(
                 state, arena=self._arena, track_dirty=track,
                 dirty_block=self.config.dirty_block,
                 device_dirty=device_dirty)
-            dev_amax = quant.amax_to_host(dev_amax)
             if notify is not None:
                 notify()
         arena_reused = bool(self._arena and self._arena.last_reused)
-        stream_bytes = manifest.total_bytes     # before quantization
+        stream_bytes = manifest.total_bytes
         manifest.extras = extras or {}
-        gen = os.urandom(4).hex()
-        quantize_s = 0.0
         if self.config.quantize:
-            t_q = time.perf_counter()
-            ex = manifest.extras
-            manifest, buffers = quant.quantize_stream(manifest, buffers,
-                                                      amax=dev_amax)
-            manifest.extras.update(ex)
-            quantize_s = time.perf_counter() - t_q
+            manifest.extras = {**manifest.extras, "quantized": True}
+        gen = os.urandom(4).hex()
         # delta eligibility (DESIGN.md §9): tracking produced a valid
         # dirty set (arena layout hit), the previous save is durably
         # committed AND is the image resident in the arena, and the
@@ -589,7 +600,7 @@ class FastPersistCheckpointer:
                           delta_striped=(None if dplan is None
                                          else not delta_single),
                           quantize_seconds=quantize_s,
-                          device_amax=dev_amax)
+                          device_scales=dev_scales)
         if stats.delta is not None:
             # the engine stamps this dict into the COMMIT marker, so it
             # must stay the COMPLETE table (chain resolution + replay
@@ -654,15 +665,19 @@ class FastPersistCheckpointer:
                   "rb") as f:
             return f.read(extent["length"])
 
-    def _materialize(self, manifest: Manifest, stream, like):
+    def _materialize(self, manifest: Manifest, stream, like, device=None):
         """Shared tail of every load path: (de)quantize + rebuild tensors
         from an assembled stream. With a memoryview stream the tensors
         are zero-copy views into it (arena lifetime rule, DESIGN.md §7);
-        dequantized tensors are new storage."""
+        dequantized tensors are new storage — on ``device`` when it is
+        not the CPU (the int8 values and scales cross, the product runs
+        there), on the host otherwise."""
         if manifest.extras.get("quantized"):
             t0 = time.perf_counter()
             named = quant.dequantize_named(deserialize(manifest, stream),
-                                           manifest)
+                                           manifest, device=device)
+            if device is not None and torch.device(device).type == "cuda":
+                torch.cuda.synchronize(device)
             self.last_dequantize_seconds = time.perf_counter() - t0
             if like is not None:
                 return unflatten(like, named), manifest
@@ -673,7 +688,8 @@ class FastPersistCheckpointer:
              directory: Optional[str] = None,
              marker: Optional[dict] = None,
              volume_roots: Optional[Sequence[str]] = None,
-             read_plan: Union[None, int, str, ReadPlan] = None):
+             read_plan: Union[None, int, str, ReadPlan] = None,
+             device=None):
         """Assemble the full stream (the 'allgather') and rebuild arrays.
         Rank-elastic: reassembly is driven entirely by the manifest's
         SAVED plan, so any reader topology/volume layout restores a
@@ -686,7 +702,11 @@ class FastPersistCheckpointer:
         :class:`~repro_torch.core.partition.ReadPlan` over that many local
         reader workers; an explicit plan (e.g. ownership-based) is used
         as-is. Each worker reads only its owned spans through the async
-        read backends into one shared page-aligned arena buffer."""
+        read backends into one shared page-aligned arena buffer.
+
+        ``device`` is where a quantized checkpoint is dequantized (its
+        records land there; the others stay host views for the caller
+        to place)."""
         d = directory if directory is not None else self.path(step)
         if marker is None:
             marker = layout.read_commit_marker(d)
@@ -698,11 +718,11 @@ class FastPersistCheckpointer:
         if read_plan is not None:
             return self._load_parallel(manifest, plan, index, read_plan,
                                        like, verify, d, marker,
-                                       volume_roots)
+                                       volume_roots, device)
         stream = bytearray(manifest.total_bytes)
         self._fill_sequential(stream, step, d, plan, verify, marker,
                               volume_roots)
-        return self._materialize(manifest, stream, like)
+        return self._materialize(manifest, stream, like, device)
 
     def _fill_sequential(self, dest, step: int, d: str, plan: dict,
                          verify: bool, marker, volume_roots):
@@ -950,7 +970,7 @@ class FastPersistCheckpointer:
 
     def _load_parallel(self, manifest: Manifest, plan: dict,
                        index: Optional[dict], read_plan, like, verify,
-                       d: str, marker, volume_roots):
+                       d: str, marker, volume_roots, device=None):
         """N local reader workers → one shared arena buffer, combined-CRC
         verification, zero-copy deserialize."""
         total = manifest.total_bytes
@@ -958,7 +978,7 @@ class FastPersistCheckpointer:
                 else memoryview(bytearray(total)))
         self._fill_parallel(plan, index, read_plan, verify, d, marker,
                             volume_roots, dest)
-        return self._materialize(manifest, dest, like)
+        return self._materialize(manifest, dest, like, device)
 
     def read_owned(self, step: int, rank: int, n_readers: int,
                    ownership: Union[None, str, dict] = None,

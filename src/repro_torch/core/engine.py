@@ -23,6 +23,7 @@ serve from them (§12). Restored tensors are placed with
 """
 from __future__ import annotations
 
+import inspect
 import os
 import queue
 import shutil
@@ -313,11 +314,11 @@ class CheckpointBackend:
 
     def read_payload_sharded(self, directory: str, step: int, like=None,
                              verify: bool = True, marker=None,
-                             volume_roots=None,
-                             parallel=None) -> Tuple[object, object]:
-        """Multi-volume read hook; the default ignores the shard context
-        and the parallel-restore request (single-dir backends never need
-        either)."""
+                             volume_roots=None, parallel=None,
+                             device=None) -> Tuple[object, object]:
+        """Multi-volume read hook; the default ignores the shard context,
+        the parallel-restore request and the target device (single-dir
+        backends never need them; the engine places the result)."""
         return self.read_payload(directory, step, like=like, verify=verify)
 
     def invalidate_arena(self):
@@ -366,11 +367,11 @@ class FastPersistBackend(CheckpointBackend):
 
     def read_payload_sharded(self, directory, step, like=None, verify=True,
                              marker=None, volume_roots=None,
-                             parallel=None):
+                             parallel=None, device=None):
         return self._inner.load(step, like=like, verify=verify,
                                 directory=directory, marker=marker,
                                 volume_roots=volume_roots,
-                                read_plan=parallel)
+                                read_plan=parallel, device=device)
 
     def read_owned(self, directory, step, rank, n_readers, ownership=None,
                    verify=True, marker=None, volume_roots=None):
@@ -970,8 +971,9 @@ class CheckpointEngine:
         ``like`` is the state pytree to rebuild (its leaves may be
         ``meta`` tensors); without it a flat ``{name: tensor}`` dict is
         returned. ``device`` moves every restored tensor there
-        (``.to(device)``, the reference's ``sharding`` hook); without it
-        the tensors are CPU views into the read staging.
+        (``.to(device)``, the reference's ``sharding`` hook; a quantized
+        checkpoint is dequantized there); without it the tensors are CPU
+        views into the read staging.
 
         ``parallel`` switches to the parallel restore pipeline (paper
         §4.2 load-then-allgather, single-host form): an int (or
@@ -1013,10 +1015,14 @@ class CheckpointEngine:
             marker = layout.verify_commit(d, deep=verify,
                                           volume_roots=self.volume_roots())
         reader = self._reader_for(marker.get("backend", self.spec.backend))
-        # only pass the parallel kwarg when actually requested: out-of-
-        # tree backends registered against the pre-restore-pipeline
-        # signature must keep working for plain loads
+        # only pass the parallel kwarg when actually requested, and the
+        # device only to a backend that takes it: out-of-tree backends
+        # registered against the pre-restore-pipeline signature must
+        # keep working for plain loads (their result is moved below)
         kw = {} if parallel is None else {"parallel": parallel}
+        if device is not None and _takes(reader.read_payload_sharded,
+                                         "device"):
+            kw["device"] = device       # a quantized payload dequantizes there
         state, manifest = reader.read_payload_sharded(
             d, step, like=like, verify=verify, marker=marker,
             volume_roots=self.volume_roots(), **kw)
@@ -1302,6 +1308,16 @@ class CheckpointEngine:
                     get_backend_factory(alias)(self.spec)
             self._read_backends[backend_name] = self._read_backends[alias]
         return self._read_backends[backend_name]
+
+
+def _takes(fn, name: str) -> bool:
+    """Whether ``fn`` accepts the keyword argument ``name``."""
+    try:
+        params = inspect.signature(fn).parameters
+    except (TypeError, ValueError):
+        return False
+    return name in params or any(p.kind is p.VAR_KEYWORD
+                                 for p in params.values())
 
 
 def _to_device(state, device):

@@ -3,24 +3,29 @@
 
 Check-N-Run [NSDI'22] shrinks checkpoints via quantization; the paper
 contrasts FastPersist as lossless. We provide BOTH: an optional int8
-per-block quantization pass over the serialized stream. The scale of a
-block comes from its f32 abs-max: for a tensor on the card that
-reduction is the ``ckpt_pack_blocks`` CUDA kernel's amax output
-(:func:`device_block_amax`), for a host buffer it is :func:`block_amax`.
-Both use the same zero padding and the same f32 values, so they agree
-bit for bit and the bytes on disk do not depend on which one ran; they
-are the reference's bytes.
+per-block quantization of the checkpoint's float records.
 
 Stream records: ``<name>#q8`` (dtype ``int8|<orig>``, the tensor's
 shape) followed by ``<name>#scale`` (float32, one per block) for every
 float32/bfloat16/float16 tensor of at least ``BLOCK`` elements; the
 rest pass through. bf16 goes through ``torch.bfloat16`` (no ml_dtypes).
-The quantizer itself runs on the host, ``_ROWS`` blocks per pass, with
-the reference's arithmetic: f32 division by the scale, round half to
-even, clip to ±127.
+The arithmetic is the reference's: a block's scale is its f32 abs-max
+over 127 (1 for an all-zero or NaN block), and its int8 values are the
+f32 division by the scale, rounded half to even and clipped to ±127.
+
+Two routes give the same bytes. A save quantizes its leaves before the
+snapshot (:func:`quantize_leaves`): on the card that is the
+``ckpt_quant`` CUDA kernel, so only the int8 values and the scales leave
+the device; a host tensor takes the kernel's plain version.
+:func:`quantize_stream` quantizes a serialized stream on the host, as
+the reference does, ``_ROWS`` blocks per pass; its scales may come from
+the ``ckpt_pack_blocks`` kernel's amax (:func:`device_block_amax`, the
+reference's device half of the transform). A restore onto the card
+dequantizes there (:func:`dequantize_named` with ``device``).
 """
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -90,12 +95,11 @@ def block_amax(arr) -> np.ndarray:
 
 def launch_block_amax(x: torch.Tensor) -> torch.Tensor:
     """Per-block amax of ``x`` computed BY the ``ckpt_pack_blocks``
-    kernel (the device-side half this module's docstring promises),
-    enqueued on the current stream without synchronising; the result
-    stays on ``x``'s device. A CPU tensor runs the kernel's plain
-    version; any other device launches the kernel or raises. The
-    packed bf16 output is discarded: for float32 records it moves 2
-    bytes per element where an identity pack would move 4."""
+    kernel (the reference's device half of the transform), enqueued on
+    the current stream without synchronising; the result stays on
+    ``x``'s device. A CPU tensor runs the kernel's plain version; any
+    other device launches the kernel or raises. The packed bf16 output
+    is discarded."""
     from repro_torch.kernels import ops
     _packed, amax = ops.ckpt_pack(x, out_dtype=torch.bfloat16, block=BLOCK)
     return amax
@@ -108,24 +112,35 @@ def device_block_amax(x) -> np.ndarray:
     return launch_block_amax(x).cpu().numpy()
 
 
-def launch_amax(leaves) -> Dict[str, torch.Tensor]:
-    """:func:`launch_block_amax` of every quantizable CUDA leaf of
-    ``[(name, leaf), ...]``, keyed by record name: one kernel launch
-    each, all on the current stream, nothing synchronised."""
-    return {name: launch_block_amax(leaf) for name, leaf in leaves
-            if isinstance(leaf, torch.Tensor) and leaf.is_cuda
-            and quantizable(dtype_name(leaf), leaf.numel())}
-
-
-def amax_to_host(amax: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    """The device amax of :func:`launch_amax` on the host, in one
-    device→host copy (it waits for the launches)."""
-    if not amax:
-        return {}
-    names = list(amax)
-    sizes = [amax[n].numel() for n in names]
-    flat = torch.cat([amax[n] for n in names]).cpu().numpy()
-    return dict(zip(names, np.split(flat, np.cumsum(sizes)[:-1])))
+def quantize_leaves(leaves) -> Tuple[list, Dict[str, str], float]:
+    """The records of a quantized save, from the state's ``[(name,
+    leaf), ...]``, in :func:`quantize_stream`'s order: each quantizable
+    leaf becomes ``(name#q8, int8 values in the leaf's shape)`` and
+    ``(name#scale, f32 per block)``, each other leaf passes through.
+    Quantization is ``ops.ckpt_quant``: the CUDA kernel for a leaf on the
+    card, enqueued on the current stream without synchronising (the
+    outputs are new storage, so they hold the values of the moment of
+    the launch); its plain version on the host. Returns (records, the
+    manifest dtype of each ``#q8`` record — ``int8|<orig>``, which is
+    not its tensor's —, seconds spent quantizing on the host)."""
+    from repro_torch.kernels import ops
+    out, dtypes, host_s = [], {}, 0.0
+    for name, leaf in leaves:
+        dt = dtype_name(leaf)
+        shape = tuple(leaf.shape)
+        if not quantizable(dt, int(np.prod(shape, dtype=np.int64))):
+            out.append((name, leaf))
+            continue
+        host = not (isinstance(leaf, torch.Tensor) and leaf.is_cuda)
+        t0 = time.perf_counter()
+        q, scale = ops.ckpt_quant(_host_flat(leaf) if host else leaf,
+                                  block=BLOCK)
+        if host:
+            host_s += time.perf_counter() - t0
+        out += [(name + _QUANT_SUFFIX, q.view(shape)),
+                (name + _SCALE_SUFFIX, scale)]
+        dtypes[name + _QUANT_SUFFIX] = f"int8|{dt}"
+    return out, dtypes, host_s
 
 
 def amax_to_scale(amax: np.ndarray) -> np.ndarray:
@@ -150,22 +165,41 @@ def _blockwise(arr, amax: Optional[np.ndarray] = None
         if amax.size != nb:
             raise ValueError(f"amax has {amax.size} blocks; {n} elements "
                              f"make {nb}")
-    scale = np.empty(nb, np.float32)
+    from repro_torch.kernels.ref import ckpt_quant_plain
+    scale = torch.empty(nb, dtype=torch.float32)
     q = torch.empty(nb * BLOCK, dtype=torch.int8)
     for b, k, lo, hi in _passes(n):
-        rows = _f32_rows(flat, lo, hi, k)
-        a = (rows.abs().amax(dim=1).numpy() if amax is None
-             else amax[b:b + k])
-        scale[b:b + k] = amax_to_scale(a)
-        t = rows / torch.from_numpy(scale[b:b + k])[:, None]
-        q[b * BLOCK:(b + k) * BLOCK] = t.round_().clamp_(-127, 127).view(-1)
-    return q[:n].numpy(), scale
+        rows, scale[b:b + k] = ckpt_quant_plain(
+            _f32_rows(flat, lo, hi, k),
+            amax=None if amax is None else torch.from_numpy(amax[b:b + k]))
+        q[b * BLOCK:(b + k) * BLOCK] = rows.view(-1)
+    return q[:n].numpy(), scale.numpy()
 
 
-def _deblock(q, scale, dtype: str) -> torch.Tensor:
+def _deblock_whole(q: torch.Tensor, scale: torch.Tensor,
+                   dtype: str) -> torch.Tensor:
+    """:func:`_deblock` in one pass over flat tensors on one device (the
+    restore onto the card): the same f32 product ``f32(q) · scale``,
+    rounded once, straight into the ``dtype`` output."""
+    n = q.numel()
+    out = torch.empty(n, dtype=_TORCH[dtype], device=q.device)
+    whole = n // BLOCK * BLOCK
+    if whole:
+        torch.mul(q[:whole].view(-1, BLOCK), scale[:whole // BLOCK, None],
+                  out=out[:whole].view(-1, BLOCK))
+    if whole < n:
+        torch.mul(q[whole:], scale[whole // BLOCK], out=out[whole:])
+    return out
+
+
+def _deblock(q, scale, dtype: str, device=None) -> torch.Tensor:
     """Inverse of :func:`_blockwise`: the flat ``dtype`` tensor of
-    ``int8 · scale`` (f32 product, one rounding to ``dtype``)."""
+    ``int8 · scale`` (f32 product, one rounding to ``dtype``). With a
+    ``device`` other than the CPU the int8 values and scales are copied
+    there and the product runs there; the result stays there."""
     qt, st = _host_flat(q), _host_flat(scale)
+    if device is not None and torch.device(device).type != "cpu":
+        return _deblock_whole(qt.to(device), st.to(device), dtype)
     n = qt.numel()
     out = torch.empty(n, dtype=_TORCH[dtype])
     for b, k, lo, hi in _passes(n):
@@ -184,16 +218,13 @@ def _stream_values(buf: np.ndarray, dtype: str) -> torch.Tensor:
 
 
 def quantize_stream(manifest: Manifest, buffers: List[np.ndarray],
-                    amax_fn=None, amax: Optional[Dict[str, np.ndarray]] = None
-                    ) -> Tuple[Manifest, List[np.ndarray]]:
+                    amax_fn=None) -> Tuple[Manifest, List[np.ndarray]]:
     """Rewrite (manifest, buffers) with int8+scale record pairs for every
     quantizable tensor. Small/int tensors pass through unchanged.
 
-    ``amax`` maps record names to per-block amax computed beforehand
-    (the checkpointer's device amax, taken on the card before the
-    snapshot was released); ``amax_fn(values) -> per-block amax`` plugs
-    in a reduction per record (:func:`device_block_amax`). Records
-    neither covers keep the host reduction."""
+    ``amax_fn(values) -> per-block amax`` plugs in a reduction per record
+    (:func:`device_block_amax`); without it, or for a record it returns
+    None for, the host reduction runs."""
     records, out = [], []
     offset = 0
 
@@ -207,9 +238,8 @@ def quantize_stream(manifest: Manifest, buffers: List[np.ndarray],
     for rec, buf in zip(manifest.records, buffers):
         if quantizable(rec.dtype, int(np.prod(rec.shape, dtype=np.int64))):
             values = _stream_values(buf, rec.dtype)
-            a = (amax[rec.name] if amax is not None and rec.name in amax
-                 else amax_fn(values) if amax_fn is not None else None)
-            q, scale = _blockwise(values, amax=a)
+            q, scale = _blockwise(
+                values, amax=amax_fn(values) if amax_fn is not None else None)
             push(rec.name + _QUANT_SUFFIX, q, f"int8|{rec.dtype}",
                  rec.shape)
             push(rec.name + _SCALE_SUFFIX, scale, "float32", scale.shape)
@@ -220,8 +250,10 @@ def quantize_stream(manifest: Manifest, buffers: List[np.ndarray],
     return m, out
 
 
-def dequantize_named(named: dict, manifest: Manifest) -> dict:
-    """{name: tensor} from deserialize() -> original-dtype tensors."""
+def dequantize_named(named: dict, manifest: Manifest, device=None) -> dict:
+    """{name: tensor} from deserialize() -> original-dtype tensors. With
+    ``device`` (not the CPU) each quantized record is dequantized there;
+    the records that were not quantized stay as they were given."""
     dtypes = {r.name: r.dtype for r in manifest.records}
     shapes = {r.name: r.shape for r in manifest.records}
     out = {}
@@ -232,7 +264,8 @@ def dequantize_named(named: dict, manifest: Manifest) -> dict:
             base = name[:-len(_QUANT_SUFFIX)]
             orig = dtypes[name].split("|")[1]
             scale = named[base + _SCALE_SUFFIX]
-            out[base] = _deblock(arr, scale, orig).reshape(shapes[name])
+            out[base] = _deblock(arr, scale, orig,
+                                 device).reshape(shapes[name])
         else:
             out[name] = arr
     return out

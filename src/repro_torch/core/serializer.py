@@ -23,7 +23,7 @@ from __future__ import annotations
 import json
 import zlib
 from bisect import bisect_right
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -99,21 +99,42 @@ def serialize(state, arena=None, track_dirty: bool = False,
     memory (DESIGN.md §6); ``track_dirty`` records the dirty spans
     against the resident previous image in ``arena.last_dirty``
     (DESIGN.md §9). Without it, one fresh host copy per leaf."""
-    leaves = flatten(state)
+    return serialize_leaves(flatten(state), treedef_str(state), arena,
+                            track_dirty=track_dirty, dirty_block=dirty_block,
+                            device_dirty=device_dirty)
+
+
+def serialize_leaves(leaves, treedef: str, arena=None,
+                     track_dirty: bool = False, dirty_block: int = 4096,
+                     device_dirty: bool = False, dtypes=None
+                     ) -> Tuple[Manifest, List[np.ndarray]]:
+    """:func:`serialize` of records given as ``[(name, leaf), ...]``
+    with the state's ``treedef`` string. ``dtypes`` names the records
+    whose manifest dtype is not their tensor's (a quantized save's
+    ``int8|<orig>``, :func:`repro_torch.core.quant.quantize_leaves`):
+    the layout, sizes and bytes follow the tensor (``decode_record``
+    reads the part before the ``|``), and the name is set on the
+    manifest's records afterwards."""
     if arena is not None:
-        return arena.serialize(leaves, treedef_str(state),
-                               track_dirty=track_dirty,
-                               dirty_block=dirty_block,
-                               device_dirty=device_dirty)
-    records, buffers = [], []
-    offset = 0
-    for name, leaf in leaves:
-        arr = host_bytes(leaf)
-        records.append(TensorRecord(name, dtype_name(leaf),
-                                    tuple(leaf.shape), offset, arr.nbytes))
-        buffers.append(arr)
-        offset += arr.nbytes
-    return Manifest(records, offset, treedef=treedef_str(state)), buffers
+        manifest, buffers = arena.serialize(leaves, treedef,
+                                            track_dirty=track_dirty,
+                                            dirty_block=dirty_block,
+                                            device_dirty=device_dirty)
+    else:
+        records, buffers = [], []
+        offset = 0
+        for name, leaf in leaves:
+            arr = host_bytes(leaf)
+            records.append(TensorRecord(name, dtype_name(leaf),
+                                        tuple(leaf.shape), offset,
+                                        arr.nbytes))
+            buffers.append(arr)
+            offset += arr.nbytes
+        manifest = Manifest(records, offset, treedef=treedef)
+    if dtypes:
+        manifest.records = [replace(r, dtype=dtypes.get(r.name, r.dtype))
+                            for r in manifest.records]
+    return manifest, buffers
 
 
 def begin_snapshot(state, arena, chunk_bytes: int, *,

@@ -1,9 +1,13 @@
-// ckpt_pack: checkpoint block pack + per-block abs-max (+ change mask).
+// ckpt_pack: checkpoint block pack + per-block abs-max (+ change mask),
+// and the blockwise int8 quantizer built on the same abs-max.
 //
 // Replaces the TPU Pallas kernels in src/repro/kernels/ckpt_pack.py:
 //   ckpt_pack_blocks        (_kernel)        -> MASK = false
 //   ckpt_pack_dirty_blocks  (_dirty_kernel)  -> MASK = true
 // One template over (in dtype, out dtype, identity pack, with mask).
+// ckpt_quant_kernel (below) is ckpt_pack_blocks' quantize mode: its
+// amax, then the host quantizer of src/repro/core/quant.py (_blockwise)
+// on the card, so a quantized save moves int8 + scales, not a pack.
 //
 // Per row of an (n_rows, block) matrix:
 //   y    = x                        (identity: same dtype and scale == 1;
@@ -188,7 +192,125 @@ bool dispatch_out(int out_code, bool identity, bool with_mask, const void* x,
   return false;
 }
 
+// ---- quantize mode -------------------------------------------------
+//
+// Per row of the flat input x (n elements) cut into rows of `block`,
+// the last row zero-padded (the rows ops.to_blocks makes):
+//   amax  = max |f32(x)|                     (NaN propagates)
+//   scale = amax > 0 ? amax / 127 : 1        (a NaN amax gives 1)
+//   q     = int8(clamp(rint(f32(x) / scale), -127, 127))
+// bit for bit the reference's _blockwise: an IEEE f32 divide
+// (__fdiv_rn, never x * (1/scale), which is one ulp away on some
+// inputs and flips a rounding), rintf (half to even, as np.round; not
+// roundf), then the clip. The int8 of a NaN element is undefined, as
+// in the reference. Bound: bytes. It reads x once and writes n + 4 per
+// row; no pack. Design: one CUDA block per row, 256 threads; the row
+// stays in registers (at most kQuantMaxBlock elements, 16 a thread, in
+// 16-byte vectors, neighbouring threads on neighbouring vectors) across
+// the amax pass and the quantize pass; one warp-shuffle + shared-memory
+// reduction broadcasts the scale.
+constexpr int kQuantMaxBlock = 4096;
+
+template <int DIN>
+__global__ void __launch_bounds__(kThreads)
+ckpt_quant_kernel(const void* __restrict__ x, int8_t* __restrict__ q,
+                  float* __restrict__ scale, int64_t n, int64_t block) {
+  using TI = typename Bits<DIN>::T;
+  constexpr int VEC = 16 / sizeof(TI);                 // elements per load
+  constexpr int ITERS = kQuantMaxBlock / (kThreads * VEC);
+  static_assert(ITERS * kThreads * VEC == kQuantMaxBlock, "row tiling");
+
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * block;
+  const TI* xr = static_cast<const TI*>(x) + base;
+  const int64_t valid = n - base < block ? n - base : block;  // in x
+
+  float v[ITERS][VEC];
+  float m = 0.0f;
+  #pragma unroll
+  for (int k = 0; k < ITERS; ++k) {
+    const int64_t i = (static_cast<int64_t>(k) * kThreads + threadIdx.x) * VEC;
+    if (i + VEC <= valid) {
+      alignas(16) TI in[VEC];
+      *reinterpret_cast<uint4*>(in) = *reinterpret_cast<const uint4*>(xr + i);
+      #pragma unroll
+      for (int e = 0; e < VEC; ++e) v[k][e] = Bits<DIN>::to_f32(in[e]);
+    } else {                                 // ragged tail, then padding
+      #pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        v[k][e] = i + e < valid ? Bits<DIN>::to_f32(xr[i + e]) : 0.0f;
+    }
+    #pragma unroll
+    for (int e = 0; e < VEC; ++e) m = nanmax(m, fabsf(v[k][e]));
+  }
+
+  #pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    m = nanmax(m, __shfl_xor_sync(0xffffffffu, m, off));
+  __shared__ float s_m[kThreads / 32];
+  __shared__ float s_scale;
+  if (threadIdx.x % 32 == 0) s_m[threadIdx.x / 32] = m;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float r = s_m[0];
+    #pragma unroll
+    for (int w = 1; w < kThreads / 32; ++w) r = nanmax(r, s_m[w]);
+    const float s = r > 0.0f ? __fdiv_rn(r, 127.0f) : 1.0f;
+    s_scale = s;
+    scale[blockIdx.x] = s;
+  }
+  __syncthreads();
+  const float s = s_scale;
+
+  int8_t* qr = q + base;
+  #pragma unroll
+  for (int k = 0; k < ITERS; ++k) {
+    const int64_t i = (static_cast<int64_t>(k) * kThreads + threadIdx.x) * VEC;
+    if (i >= valid) continue;
+    alignas(8) int8_t out[VEC];
+    #pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      const float t = rintf(__fdiv_rn(v[k][e], s));
+      out[e] = static_cast<int8_t>(
+          static_cast<int>(fminf(fmaxf(t, -127.0f), 127.0f)));
+    }
+    if (i + VEC <= valid) {
+      if constexpr (VEC == 8)
+        *reinterpret_cast<uint2*>(qr + i) = *reinterpret_cast<const uint2*>(out);
+      else
+        *reinterpret_cast<uint32_t*>(qr + i) =
+            *reinterpret_cast<const uint32_t*>(out);
+    } else {
+      for (int e = 0; e < VEC && i + e < valid; ++e) qr[i + e] = out[e];
+    }
+  }
+}
+
 }  // namespace
+
+// C entry point of the quantize mode (bound with ctypes): x holds n
+// elements of in_code's dtype, 16-byte aligned; q (n int8) and scale
+// (ceil(n / block) f32) are the wrapper's. block must be a multiple of
+// 8 elements and at most kQuantMaxBlock. Returns cudaGetLastError()
+// after the launch (or cudaErrorInvalidValue for bad arguments).
+extern "C" int ckpt_quant_launch(const void* x, void* q, void* scale,
+                                 long long n, long long block, int in_code,
+                                 void* stream) {
+  const long long n_rows = block > 0 ? (n + block - 1) / block : 0;
+  if (n <= 0 || block <= 0 || block % 8 != 0 || block > kQuantMaxBlock ||
+      n_rows > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int8_t* qo = static_cast<int8_t*>(q);
+  float* so = static_cast<float*>(scale);
+  const unsigned grid = static_cast<unsigned>(n_rows);
+  switch (in_code) {
+    case kF32: ckpt_quant_kernel<kF32><<<grid, kThreads, 0, s>>>(x, qo, so, n, block); break;
+    case kBF16: ckpt_quant_kernel<kBF16><<<grid, kThreads, 0, s>>>(x, qo, so, n, block); break;
+    case kF16: ckpt_quant_kernel<kF16><<<grid, kThreads, 0, s>>>(x, qo, so, n, block); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 // C entry point (bound with ctypes). prev/mask are ignored unless
 // with_mask; identity requires in_code == out_code. The wrapper checks

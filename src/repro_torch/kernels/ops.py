@@ -1,7 +1,8 @@
 """Public wrappers around the kernels (the counterpart of
 ``repro.kernels.ops``). The ckpt_pack ones flatten + zero-pad any tensor
-into ``(n_blocks, block)`` rows, then pack. ``flash_attention`` and
-``ssd_intra_chunk`` are the kernel wrappers themselves, with the
+into ``(n_blocks, block)`` rows, then pack (or quantize: ``ckpt_quant``).
+``flash_attention`` and ``ssd_intra_chunk`` are the kernel wrappers
+themselves, with the
 reference's signatures less ``flash_attention``'s ``block_q``/``block_k``
 (the CUDA kernel's tiling is fixed); their launch counts are
 ``ops.flash_attention.launches`` and ``ops.ssd_intra_chunk.launches``."""
@@ -13,17 +14,10 @@ from repro_torch.kernels import ckpt_pack as _cp
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ssd_scan import ssd_intra_chunk
 
-__all__ = ["ckpt_pack", "ckpt_pack_dirty", "flash_attention", "pack_blocks",
-           "ssd_intra_chunk"]
+__all__ = ["ckpt_pack", "ckpt_pack_dirty", "ckpt_quant", "flash_attention",
+           "pack_blocks", "ssd_intra_chunk"]
 
-
-def _to_blocks(flat, block):
-    """(n_blocks, block) rows of ``flat``, zero-padded; a view when no
-    pad is needed."""
-    pad = (-flat.shape[0]) % block
-    if pad:
-        flat = torch.cat([flat, flat.new_zeros(pad)])
-    return flat.reshape(-1, block)
+_to_blocks = _cp.to_blocks
 
 
 def ckpt_pack(x, *, out_dtype=torch.bfloat16, scale=1.0,
@@ -36,6 +30,14 @@ def ckpt_pack(x, *, out_dtype=torch.bfloat16, scale=1.0,
     packed, amax = _cp.ckpt_pack_blocks(_to_blocks(flat, block),
                                         out_dtype=out_dtype, scale=scale)
     return packed.reshape(-1)[:n], amax
+
+
+def ckpt_quant(x, *, block=_cp.QUANT_MAX_BLOCK):
+    """Blockwise int8 quantization of an any-shape float tensor (rows of
+    ``block`` elements of the flattened tensor, the last zero-padded as
+    ``ckpt_pack`` pads): (q int8 (x.numel(),), scale f32 (n_blocks,)),
+    through the ckpt_quant kernel on the card."""
+    return _cp.ckpt_quant_blocks(x.detach().reshape(-1), block=block)
 
 
 def pack_blocks(x, *, block=_cp.DEFAULT_BLOCK):

@@ -20,6 +20,22 @@ def ckpt_pack_plain(x2d, *, out_dtype=torch.bfloat16, scale=1.0):
     return xf.to(out_dtype), xf.abs().amax(dim=1)
 
 
+def ckpt_quant_plain(x2d, amax=None):
+    """(q (n, block) int8, scale (n,) f32): per row, ``scale = amax / 127``
+    where the row's f32 abs-max is > 0 (else 1, a NaN amax included) and
+    ``q = int8(clip(round_half_even(f32(x) / scale), -127, 127))``, the
+    arithmetic of the reference's ``core.quant._blockwise``. ``amax``
+    (f32, one per row) skips the reduction. Both divisors are tensors on
+    x's device: on the card a division by a Python number is a product
+    with its reciprocal, which is one ulp off on some inputs."""
+    xf = x2d.to(torch.float32)
+    if amax is None:
+        amax = xf.abs().amax(dim=1)
+    scale = torch.where(amax > 0, amax / amax.new_full((), 127.0), 1.0)
+    q = (xf / scale[:, None]).round_().clamp_(-127, 127).to(torch.int8)
+    return q, scale
+
+
 def ckpt_pack_dirty_plain(x2d, prev2d, *, out_dtype=None, scale=1.0):
     """Pack + per-block BITWISE change mask against the previous packed
     image (NaN-stable, like the host byte compare in

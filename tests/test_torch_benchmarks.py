@@ -425,4 +425,4 @@ def test_harness_on_the_card(tmp_path, monkeypatch):
     assert all(c["ok_full"] and c["ok_delta"]
                for c in results["fig_delta"]["cells"])
     assert results["fig10_restore"]["roundtrip_ok"] is True
-    assert results["beyond_quant"][True].device_amax
+    assert results["beyond_quant"][True].device_scales

@@ -165,3 +165,41 @@ def test_restore_moves_to_device_and_copies(tmp_path):
     assert got["b"].dtype == torch.bfloat16 and torch.equal(
         got["b"].float(), torch.ones(8))
     assert [r.name for r in man.records] == ["b", "w"]
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_old_signature_backend_still_loads(tmp_path, quantize):
+    """A backend registered with the pre-restore-pipeline signature of
+    ``read_payload_sharded`` (no ``parallel``, no ``device``) keeps
+    working for plain loads and for ``load(device=...)``: the engine
+    passes it neither and moves the result itself; a quantized payload
+    is then dequantized on the host."""
+    from repro_torch.core import engine as eng_mod
+
+    class OldSigBackend(eng_mod.FastPersistBackend):
+        def read_payload_sharded(self, directory, step, like=None,
+                                 verify=True, marker=None,
+                                 volume_roots=None):     # old shape
+            return super().read_payload_sharded(
+                directory, step, like=like, verify=verify,
+                marker=marker, volume_roots=volume_roots)
+
+    eng_mod.register_backend("old-sig", OldSigBackend, overwrite=True)
+    try:
+        state = _state()
+        eng = CheckpointEngine(CheckpointSpec(
+            str(tmp_path), backend="old-sig",
+            fp=FastPersistConfig(quantize=quantize)))
+        eng.save(state, 1).wait()
+        plain, _ = eng.load(1, like=state)
+        moved, man = eng.load(1, like=state, device="cpu")
+        assert bool(man.extras.get("quantized")) == quantize
+        for got in (plain, moved):
+            assert got["b"].dtype == torch.bfloat16
+            assert torch.equal(got["b"].float(), torch.ones(8))
+            if quantize:                 # one block, amax 4095: bound 16.1
+                assert (got["w"] - state["w"]).abs().max() <= 4095 / 254
+            else:
+                assert torch.equal(got["w"], state["w"])
+    finally:
+        eng_mod.unregister_backend("old-sig")

@@ -158,18 +158,25 @@ def test_nan_block_amax_and_scale(dtype):
 
 
 def test_amax_by_record_name_is_used():
-    """The checkpointer hands quantize_stream the device amax keyed by
-    record name: a record it covers takes that amax, the rest the host
-    reduction."""
+    """``quantize_stream`` takes a record's scale from ``amax_fn`` where it
+    gives one and from the host reduction where it returns None: here
+    the ``wide`` record (told apart by its size) gets twice its amax,
+    ``rag`` the host's; a quantized save of host state takes no device
+    scales."""
     state = {k: _torch(v) for k, v in _edge_state("float32").items()}
     m, b = pser.serialize(state)
     host = quant.block_amax(state["wide"])
-    qm, qb = quant.quantize_stream(m, b, amax={"wide": host * 2})
+    qm, qb = quant.quantize_stream(
+        m, b, amax_fn=lambda v: (host * 2 if v.numel() == 2 * BLOCK
+                                 else None))
     got = dict(zip([r.name for r in qm.records], qb))
     assert np.array_equal(got["wide#scale"], quant.amax_to_scale(host * 2))
     assert np.array_equal(got["rag#scale"], quant.amax_to_scale(
         quant.block_amax(state["rag"])))
-    assert quant.launch_amax(flatten(state)) == {}     # no CUDA leaves
+    recs, dtypes, _ = quant.quantize_leaves(flatten(state))
+    assert dtypes == {"rag#q8": "int8|float32", "wide#q8": "int8|float32"}
+    assert not any(isinstance(t, torch.Tensor) and t.is_cuda
+                   for _, t in recs)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -431,7 +438,7 @@ def test_quantized_save_is_monolithic_and_never_a_delta(tmp_path):
     for step in (1, 2):
         st = ck.save(state, step)
         assert st.delta is None and st.snapshot_chunks == 0
-        assert st.device_amax == {} and st.quantize_seconds > 0
+        assert st.device_scales == {} and st.quantize_seconds > 0
     got, man = ck.load(2, like=state)
     assert man.extras["quantized"] and ck.last_dequantize_seconds > 0
     assert _bits(got["ints"]) == _bits(state["ints"])
@@ -480,9 +487,10 @@ def test_kernel_amax_matches_host_on_card(cuda, dtype):
 
 @pytest.mark.gpu
 def test_quantized_save_amax_is_the_snapshots(cuda, tmp_path):
-    """The amax of a pipelined quantized save is that of the values the
-    snapshot copied, though the caller updates a parameter in place as
-    soon as ``wait_snapshot`` returns."""
+    """A pipelined quantized save quantizes on the card (one ckpt_quant
+    launch per record, no ckpt_pack_blocks) and writes the int8 values
+    and scales of the values the snapshot saw, though the caller updates
+    a parameter in place as soon as ``wait_snapshot`` returns."""
     g = torch.Generator(device=cuda).manual_seed(5)
     state = {"w": torch.randn(64 * BLOCK, generator=g, device=cuda),
              "b": torch.randn(8 * BLOCK, generator=g,
@@ -491,13 +499,20 @@ def test_quantized_save_amax_is_the_snapshots(cuda, tmp_path):
     eng = CheckpointEngine(CheckpointSpec(
         str(tmp_path), backend="fastpersist-pipelined",
         fp=FastPersistConfig(quantize=True)))
-    n0 = cp.ckpt_pack_blocks.launches
+    n0, p0 = cp.ckpt_quant_blocks.launches, cp.ckpt_pack_blocks.launches
     h = eng.save(state, 1)
     eng.wait_snapshot()
     state["w"].mul_(4.0)                     # in place, after the snapshot
     st = h.result()
     eng.close()
-    assert cp.ckpt_pack_blocks.launches == n0 + 2
+    assert cp.ckpt_quant_blocks.launches == n0 + 2
+    assert cp.ckpt_pack_blocks.launches == p0
+    assert st.quantize_seconds == 0.0
+    assert st.d2h_bytes == st.total_bytes == sum(
+        t.numel() + 4 * (t.numel() // BLOCK) for t in snap.values())
+    rd = CheckpointEngine(CheckpointSpec(str(tmp_path)))
     for name in ("w", "b"):
-        assert np.array_equal(st.device_amax[name],
-                              quant.block_amax(snap[name])), name
+        q, scale = quant._blockwise(snap[name])
+        assert np.array_equal(st.device_scales[name], scale), name
+        assert _bits(rd.load_tensor(name + "#scale")) == _bits(scale), name
+        assert _bits(rd.load_tensor(name + "#q8")) == _bits(q), name
