@@ -40,13 +40,13 @@ from __future__ import annotations
 
 import collections
 import threading
-import time
 import weakref
 from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core.serializer import (Manifest, TensorRecord, dtype_name,
                                          store_dtype)
 from repro_torch.core.writer import aligned_buffer
@@ -302,7 +302,10 @@ class SerializeArena:
         a CPU state)."""
         key = self._signature(leaves, treedef)
         if key != self._key or self._buffers is None:
-            self._layout(leaves, treedef, key)
+            n_alloc = self.n_alloc
+            with spans.span("snapshot.alloc") as sp:
+                self._layout(leaves, treedef, key)
+                sp.nbytes = self.capacity if self.n_alloc > n_alloc else 0
             self.last_reused = False
         else:
             self.n_reuse += 1
@@ -492,8 +495,10 @@ class SerializeArena:
         spans land in ``self.last_dirty``; on a layout miss it is None
         and the caller must write a keyframe."""
         ready = self._prepare(leaves, treedef)
-        self._fill(leaves, ready, track_dirty=track_dirty,
-                   dirty_block=dirty_block, device_dirty=device_dirty)
+        with spans.span("snapshot.fill") as sp:
+            self._fill(leaves, ready, track_dirty=track_dirty,
+                       dirty_block=dirty_block, device_dirty=device_dirty)
+            sp.nbytes = self.last_d2h_bytes
         manifest = Manifest(self._records, self._total,
                             treedef=self._treedef_str)
         return manifest, list(self._buffers)
@@ -515,18 +520,21 @@ class SerializeArena:
         buffers = list(self._buffers)
 
         def fill():
-            t0 = time.perf_counter()
-            try:
-                self._fill(leaves, ready, track_dirty=track_dirty,
-                           dirty_block=dirty_block,
-                           device_dirty=device_dirty, progress=progress,
-                           chunk_bytes=chunk_bytes)
-            except BaseException as exc:   # noqa: BLE001 — parked, re-raised
-                progress.seconds = time.perf_counter() - t0
-                progress.fail(exc)
-            else:
-                progress.seconds = time.perf_counter() - t0
+            failure = None
+            with spans.timed("snapshot.fill") as sp:
+                try:
+                    self._fill(leaves, ready, track_dirty=track_dirty,
+                               dirty_block=dirty_block,
+                               device_dirty=device_dirty, progress=progress,
+                               chunk_bytes=chunk_bytes)
+                    sp.nbytes = self.last_d2h_bytes
+                except BaseException as exc:  # noqa: BLE001 — parked
+                    failure = exc             # and re-raised by `progress`
+            progress.seconds = sp.seconds
+            if failure is None:
                 progress.finish()
+            else:
+                progress.fail(failure)
 
         return manifest, buffers, progress, fill
 

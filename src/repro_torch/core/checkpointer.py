@@ -51,6 +51,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core import layout, quant
 from repro_torch.core.arena import SerializeArena
 from repro_torch.core.delta import (DeltaPlan, apply_delta,
@@ -192,7 +193,12 @@ class SaveStats:
     n_writers: int
     backend: str = ""                  # set by CheckpointEngine
     step: int = -1                     # set by CheckpointEngine
-    commit_seconds: float = 0.0        # COMMIT marker + atomic rename
+    #: the payloads' fsync, the COMMIT marker and the atomic publish:
+    #: the sum of the save's ``commit.*`` spans (set by CheckpointEngine)
+    commit_seconds: float = 0.0
+    #: the ``commit.fsync`` span: the payloads' fsync, part of
+    #: ``commit_seconds`` (set by CheckpointEngine)
+    fsync_seconds: float = 0.0
     #: per-shard-file descriptors {name, volume, size, crc32} — the
     #: engine folds these into the global COMMIT marker
     shards: List[dict] = field(default_factory=list)
@@ -515,7 +521,8 @@ class FastPersistCheckpointer:
             if len(plan.extents) == 1:
                 per_writer = [run_writer(plan.extents[0])]
             else:
-                with ThreadPoolExecutor(len(plan.extents)) as ex:
+                with ThreadPoolExecutor(len(plan.extents),
+                                        thread_name_prefix="fp-write") as ex:
                     per_writer = list(ex.map(run_writer, plan.extents))
         finally:
             # the arena must never see a new fill while this one runs —
@@ -528,51 +535,52 @@ class FastPersistCheckpointer:
             progress.wait_done()
         wall = time.perf_counter() - t0
 
-        mpath = os.path.join(d, layout.MANIFEST_FILE)
-        meta = json.loads(manifest.to_json())
-        # mirror the COMMIT stamping rule: a delta generation is v3;
-        # otherwise only a checkpoint whose shards actually leave the
-        # primary directory is a v2 layout — anything else stays
-        # readable by pre-sharding (v1) readers
-        d_real = os.path.realpath(d)
-        striped = any(os.path.realpath(dirs[e.volume]) != d_real
-                      for e in plan.extents)
-        meta["layout_version"] = (
-            layout.DELTA_LAYOUT_VERSION if dplan is not None
-            else layout.SHARDED_LAYOUT_VERSION if striped else 1)
-        # the generation nonce also lands in the manifest so standalone
-        # (no-COMMIT) saves still resolve delta chains
-        meta["generation"] = gen
-        if dplan is not None:
-            meta["delta"] = dplan.to_meta()
-            meta["delta"]["striped"] = not delta_single
-        extents_meta = [vars(e).copy() for e in plan.extents]
-        if self.config.checksum:
-            # fill-phase CRCs from the writers — NOT a second sweep
-            for em, ws in zip(extents_meta, per_writer):
-                if ws.crc32 is not None:
-                    em["crc32"] = ws.crc32
-        meta["plan"] = {"strategy": plan.strategy, "extents": extents_meta,
-                        "n_volumes": plan.n_volumes}
-        degraded = tuple(sorted({*plan.degraded, *probe_degraded}))
-        if degraded:
-            # audit trail: which volumes the health probe dropped (the
-            # COMMIT's per-shard volume records already make restore
-            # work without this — it is for operators and tests)
-            meta["plan"]["degraded"] = list(degraded)
-        # the global index: tensor → [shard, offset-in-shard, length]
-        # spans, the key to rank-elastic and partial restore (§5).
-        # Delta generations have none: their extents cover the PACKED
-        # span payload, not the tensor stream — the DeltaPlan span
-        # table is their index
-        if dplan is None:
-            meta["index"] = tensor_spans(manifest.records, plan.extents)
-        with open(mpath, "w") as f:
-            json.dump(meta, f)
-        if self.config.fsync:
-            fd = os.open(d, os.O_RDONLY)
-            os.fsync(fd)
-            os.close(fd)
+        with spans.span("save.manifest"):
+            mpath = os.path.join(d, layout.MANIFEST_FILE)
+            meta = json.loads(manifest.to_json())
+            # mirror the COMMIT stamping rule: a delta generation is v3;
+            # otherwise only a checkpoint whose shards actually leave the
+            # primary directory is a v2 layout — anything else stays
+            # readable by pre-sharding (v1) readers
+            d_real = os.path.realpath(d)
+            striped = any(os.path.realpath(dirs[e.volume]) != d_real
+                          for e in plan.extents)
+            meta["layout_version"] = (
+                layout.DELTA_LAYOUT_VERSION if dplan is not None
+                else layout.SHARDED_LAYOUT_VERSION if striped else 1)
+            # the generation nonce also lands in the manifest so standalone
+            # (no-COMMIT) saves still resolve delta chains
+            meta["generation"] = gen
+            if dplan is not None:
+                meta["delta"] = dplan.to_meta()
+                meta["delta"]["striped"] = not delta_single
+            extents_meta = [vars(e).copy() for e in plan.extents]
+            if self.config.checksum:
+                # fill-phase CRCs from the writers — NOT a second sweep
+                for em, ws in zip(extents_meta, per_writer):
+                    if ws.crc32 is not None:
+                        em["crc32"] = ws.crc32
+            meta["plan"] = {"strategy": plan.strategy, "extents": extents_meta,
+                            "n_volumes": plan.n_volumes}
+            degraded = tuple(sorted({*plan.degraded, *probe_degraded}))
+            if degraded:
+                # audit trail: which volumes the health probe dropped (the
+                # COMMIT's per-shard volume records already make restore
+                # work without this — it is for operators and tests)
+                meta["plan"]["degraded"] = list(degraded)
+            # the global index: tensor → [shard, offset-in-shard, length]
+            # spans, the key to rank-elastic and partial restore (§5).
+            # Delta generations have none: their extents cover the PACKED
+            # span payload, not the tensor stream — the DeltaPlan span
+            # table is their index
+            if dplan is None:
+                meta["index"] = tensor_spans(manifest.records, plan.extents)
+            with open(mpath, "w") as f:
+                json.dump(meta, f)
+            if self.config.fsync:
+                fd = os.open(d, os.O_RDONLY)
+                os.fsync(fd)
+                os.close(fd)
         shard_meta = []
         if self.config.single_file:
             shard_meta.append({"name": "checkpoint.bin", "volume": 0,

@@ -32,6 +32,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+from repro_torch import spans
 from repro_torch.core import layout
 from repro_torch.core.baseline import BaselineCheckpointer
 from repro_torch.core.checkpointer import (FastPersistCheckpointer,
@@ -650,20 +651,21 @@ class CheckpointEngine:
         job = lambda: self._save_committed(state, step, extras,  # noqa: E731
                                            handle)
         self.stats.submitted += 1
-        if self._backend.async_save:
-            if self._worker is None:
-                self._worker = _SaveWorker()
-            self._throttle()
-            with self._lock:
-                self._inflight.append(handle)
-            self._worker.submit(job, handle)
+        with spans.span("engine.save"):
+            if self._backend.async_save:
+                if self._worker is None:
+                    self._worker = _SaveWorker()
+                self._throttle()
+                with self._lock:
+                    self._inflight.append(handle)
+                self._worker.submit(job, handle)
+                return handle
+            try:
+                handle._finish(stats=job())  # failures counted inside job
+            except BaseException as e:
+                handle._finish(exc=e)
+                raise
             return handle
-        try:
-            handle._finish(stats=job())      # failures counted inside job
-        except BaseException as e:
-            handle._finish(exc=e)
-            raise
-        return handle
 
     def _warn_if_legacy_only(self):
         """Pre-engine checkpoints (manifest.json, no COMMIT) are
@@ -714,98 +716,109 @@ class CheckpointEngine:
         (rename; THE commit point). Runs on the caller or the helper
         thread; a death at any point leaves only ignorable ``.tmp``
         debris and unreferenced shard dirs that startup sweeps."""
-        root = self.spec.directory
-        roots = self.volume_roots()
-        primary_real = os.path.realpath(root)
-        nonce = os.urandom(4).hex()
-        staging = os.path.join(root, layout.staging_dir_name(step))
-        final = os.path.join(root, layout.step_dir_name(step))
-        # per-volume staging: volumes aliasing the primary stage into the
-        # primary staging dir; others get a generation-named shard dir —
-        # aliased/duplicate secondary roots share ONE generation dir, so
-        # a symlinked mount never double-publishes the same name
-        # volume health: a root that is gone/unwritable gets no staging
-        # dir — the checkpointer's plan-time probe then stripes around
-        # it (its staging path cannot be created) and the manifest
-        # records the degraded set
-        _, dead = probe_volumes(roots)
-        dead = set(dead)
-        volume_staging, secondary = [], {}    # v → (staging, final)
-        gen_by_root: Dict[str, tuple] = {}    # realpath(root) → (s, f)
-        for v, vr in enumerate(roots):
-            real = os.path.realpath(vr)
-            if real == primary_real:
-                volume_staging.append(staging)
-                continue
-            if v in dead:
-                # hand the uncreatable path down: the probe below reads
-                # it as degraded; never publish/sweep on a dead root
-                volume_staging.append(os.path.join(
-                    vr, layout.shard_staging_dir_name(step, nonce)))
-                continue
-            if real not in gen_by_root:
-                gen_by_root[real] = (
-                    os.path.join(vr, layout.shard_staging_dir_name(step,
-                                                                   nonce)),
-                    os.path.join(vr, layout.shard_dir_name(step, nonce)))
-            s, f = gen_by_root[real]
-            secondary[v] = (s, f)
-            volume_staging.append(s)
-        all_staging = sorted({staging, *(s for s, _ in gen_by_root.values())})
-        for d in all_staging:
-            if os.path.exists(d):
-                shutil.rmtree(d)
-            os.makedirs(d)
-        # snapshot-granular sync (DESIGN.md §10): tell the backend to
-        # flip this handle's snapshot event as soon as the device→
-        # staging copy lands — binding happens here (on the serial save
-        # path) so queued saves never clobber each other's callback
-        if handle is not None:
-            self._backend.bind_snapshot(handle._mark_snapshot)
+        with spans.span("save.prepare"):
+            root = self.spec.directory
+            roots = self.volume_roots()
+            primary_real = os.path.realpath(root)
+            nonce = os.urandom(4).hex()
+            staging = os.path.join(root, layout.staging_dir_name(step))
+            final = os.path.join(root, layout.step_dir_name(step))
+            # per-volume staging: volumes aliasing the primary stage into the
+            # primary staging dir; others get a generation-named shard dir —
+            # aliased/duplicate secondary roots share ONE generation dir, so
+            # a symlinked mount never double-publishes the same name
+            # volume health: a root that is gone/unwritable gets no staging
+            # dir — the checkpointer's plan-time probe then stripes around
+            # it (its staging path cannot be created) and the manifest
+            # records the degraded set
+            _, dead = probe_volumes(roots)
+            dead = set(dead)
+            volume_staging, secondary = [], {}    # v → (staging, final)
+            gen_by_root: Dict[str, tuple] = {}    # realpath(root) → (s, f)
+            for v, vr in enumerate(roots):
+                real = os.path.realpath(vr)
+                if real == primary_real:
+                    volume_staging.append(staging)
+                    continue
+                if v in dead:
+                    # hand the uncreatable path down: the probe below reads
+                    # it as degraded; never publish/sweep on a dead root
+                    volume_staging.append(os.path.join(
+                        vr, layout.shard_staging_dir_name(step, nonce)))
+                    continue
+                if real not in gen_by_root:
+                    gen_by_root[real] = (
+                        os.path.join(vr, layout.shard_staging_dir_name(step,
+                                                                       nonce)),
+                        os.path.join(vr, layout.shard_dir_name(step, nonce)))
+                s, f = gen_by_root[real]
+                secondary[v] = (s, f)
+                volume_staging.append(s)
+            all_staging = sorted({staging,
+                                  *(s for s, _ in gen_by_root.values())})
+            for d in all_staging:
+                if os.path.exists(d):
+                    shutil.rmtree(d)
+                os.makedirs(d)
+            # snapshot-granular sync (DESIGN.md §10): tell the backend to
+            # flip this handle's snapshot event as soon as the device→
+            # staging copy lands — binding happens here (on the serial save
+            # path) so queued saves never clobber each other's callback
+            if handle is not None:
+                self._backend.bind_snapshot(handle._mark_snapshot)
         published = False
         try:
             stats = self._backend.write_payload_sharded(
                 state, step, extras, staging, volume_staging)
-            t0 = time.perf_counter()
-            # a volume-agnostic backend (baseline, single_file) leaves
-            # its secondary staging dirs empty: drop them instead of
-            # publishing and commit-recording empty generation dirs
-            live = []
-            for s, f in gen_by_root.values():
-                if os.listdir(s):
-                    live.append((s, f))
-                else:
-                    os.rmdir(s)
-            if self.spec.fsync_commit:
-                # the bytes COMMIT vouches for must be durable first —
-                # otherwise power loss can keep the marker, drop the
-                # data; volumes drain concurrently, one flusher per file
-                layout.fsync_payloads([staging, *(s for s, _ in live)])
-            if len(live) > 1:
-                # publish every volume's shard dir concurrently — each
-                # rename + parent fsync is an independent journal commit
-                from concurrent.futures import ThreadPoolExecutor
-                with ThreadPoolExecutor(len(live)) as ex:
-                    list(ex.map(
-                        lambda sf: layout.publish_fresh(
-                            *sf, fsync=self.spec.fsync_commit), live))
-            elif live:
-                layout.publish_fresh(*live[0], fsync=self.spec.fsync_commit)
+            with spans.timed("commit.fsync") as fsync:
+                # a volume-agnostic backend (baseline, single_file)
+                # leaves its secondary staging dirs empty: drop them
+                # instead of publishing and commit-recording empty
+                # generation dirs
+                live = []
+                for s, f in gen_by_root.values():
+                    if os.listdir(s):
+                        live.append((s, f))
+                    else:
+                        os.rmdir(s)
+                if self.spec.fsync_commit:
+                    # the bytes COMMIT vouches for must be durable first
+                    # — otherwise power loss can keep the marker, drop
+                    # the data; volumes drain concurrently, one flusher
+                    # per file
+                    layout.fsync_payloads([staging, *(s for s, _ in live)])
+            with spans.timed("commit.publish") as shards:
+                if len(live) > 1:
+                    # publish every volume's shard dir concurrently — each
+                    # rename + parent fsync is an independent journal
+                    # commit
+                    from concurrent.futures import ThreadPoolExecutor
+                    with ThreadPoolExecutor(len(live)) as ex:
+                        list(ex.map(
+                            lambda sf: layout.publish_fresh(
+                                *sf, fsync=self.spec.fsync_commit), live))
+                elif live:
+                    layout.publish_fresh(*live[0],
+                                         fsync=self.spec.fsync_commit)
             live_staging = {s for s, _ in live}
             volume_dirs = {str(v): os.path.basename(f)
                            for v, (s, f) in sorted(secondary.items())
                            if s in live_staging}
-            marker = layout.write_commit_marker(
-                staging, step, self.spec.backend,
-                fsync=self.spec.fsync_commit,
-                shards=getattr(stats, "shards", None),
-                volume_roots=roots if volume_dirs else None,
-                volume_dirs=volume_dirs or None,
-                generation=getattr(stats, "generation", "") or None,
-                delta=getattr(stats, "delta", None))
-            layout.publish(staging, final, fsync=self.spec.fsync_commit)
+            with spans.timed("commit.marker") as sealed:
+                marker = layout.write_commit_marker(
+                    staging, step, self.spec.backend,
+                    fsync=self.spec.fsync_commit,
+                    shards=getattr(stats, "shards", None),
+                    volume_roots=roots if volume_dirs else None,
+                    volume_dirs=volume_dirs or None,
+                    generation=getattr(stats, "generation", "") or None,
+                    delta=getattr(stats, "delta", None))
+            with spans.timed("commit.publish") as step_dir:
+                layout.publish(staging, final, fsync=self.spec.fsync_commit)
             published = True
-            stats.commit_seconds = time.perf_counter() - t0
+            stats.fsync_seconds = fsync.seconds
+            stats.commit_seconds = (fsync.seconds + shards.seconds
+                                    + sealed.seconds + step_dir.seconds)
         except BaseException:
             # graceful-failure path; a SIGKILL leaves the .tmp dirs and
             # unreferenced generation dirs, which every reader ignores
@@ -874,20 +887,19 @@ class CheckpointEngine:
         still awaited by the save throttle, :meth:`wait` and
         :meth:`drain`. Re-raises the first
         failure of an already-failed save. No-op for sync backends."""
-        t0 = time.perf_counter()
-        with self._lock:
-            pending = list(self._prune_inflight_locked())
-            err, self._deferred_exc = self._deferred_exc, None
-        for h in pending:
-            h._snapshotted.wait()
-            if err is None and h.done() and h._exc is not None:
-                err = h._exc
-                with self._lock:
-                    if h in self._inflight:
-                        self._inflight.remove(h)
-        dt = time.perf_counter() - t0
-        self.stats.stall_seconds += dt
-        self.stats.snapshot_stall_seconds += dt
+        with spans.timed("engine.wait_snapshot") as sp:
+            with self._lock:
+                pending = list(self._prune_inflight_locked())
+                err, self._deferred_exc = self._deferred_exc, None
+            for h in pending:
+                h._snapshotted.wait()
+                if err is None and h.done() and h._exc is not None:
+                    err = h._exc
+                    with self._lock:
+                        if h in self._inflight:
+                            self._inflight.remove(h)
+        self.stats.stall_seconds += sp.seconds
+        self.stats.snapshot_stall_seconds += sp.seconds
         if err is not None:
             raise err
 
@@ -895,12 +907,13 @@ class CheckpointEngine:
         """wait() plus parking the helper thread — no thread outlives
         the work. The engine stays fully usable; the next async save
         restarts the worker."""
-        try:
-            self.wait()
-        finally:
-            if self._worker is not None:
-                self._worker.close()
-                self._worker = None
+        with spans.span("engine.drain"):
+            try:
+                self.wait()
+            finally:
+                if self._worker is not None:
+                    self._worker.close()
+                    self._worker = None
 
     def close(self):
         """Drain outstanding saves, stop the helper thread, and close

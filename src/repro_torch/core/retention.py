@@ -51,6 +51,7 @@ import threading
 from dataclasses import dataclass
 from typing import Iterable, List, Optional, Sequence
 
+from repro_torch import spans
 from repro_torch.core import layout
 
 
@@ -128,8 +129,9 @@ def collect(directory: str, policy: RetentionPolicy,
     # newest-first: a crash mid-sweep must never leave a delta whose
     # (older) base was already deleted — deleting the newest victim
     # first keeps every surviving chain replayable at all times
-    for s in sorted(victims, reverse=True):
-        layout.delete_step(directory, s, volume_roots)
+    with spans.span("retention.delete"):
+        for s in sorted(victims, reverse=True):
+            layout.delete_step(directory, s, volume_roots)
     return sorted(victims)
 
 

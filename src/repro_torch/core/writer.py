@@ -37,6 +37,7 @@ import zlib
 from dataclasses import dataclass
 from typing import Iterable, Optional
 
+from repro_torch import spans
 from repro_torch.core import aio
 
 DEFAULT_ALIGN = 4096
@@ -85,18 +86,17 @@ class WriterConfig:
 class WriteStats:
     bytes_written: int = 0
     seconds: float = 0.0
-    fill_seconds: float = 0.0      # device→staging copies
     flush_seconds: float = 0.0     # staging→disk (pwrite time, or time
     #                                blocked on async completions)
-    crc_seconds: float = 0.0       # fill-phase CRC accumulation
+    crc_seconds: float = 0.0       # fill-phase CRC (write.crc spans)
     n_writes: int = 0
     direct: bool = False
     backend: str = "pwrite"        # resolved submission backend
     crc32: Optional[int] = None    # stream CRC32 (None if checksum off)
     #: time the fill phase spent blocked waiting for its SOURCE (the
     #: chunked-snapshot gate, DESIGN.md §10) rather than copying —
-    #: reported by gated segment iterables, 0.0 for plain streams.
-    #: ``fill_seconds`` includes this; subtract to get pure copy time.
+    #: reported by gated segment iterables, 0.0 for plain streams; the
+    #: ``write.copy`` spans include it.
     source_wait_seconds: float = 0.0
 
     @property
@@ -148,34 +148,37 @@ def write_stream(path: str, segments: Iterable[memoryview], total: int,
             buf = bufs[bi]
             # buffer recycling: its previous write must have landed
             if tickets[bi] is not None:
-                flusher.wait(tickets[bi])
+                with spans.span("write.wait"):
+                    flusher.wait(tickets[bi])
                 tickets[bi] = None
             target = min(cfg.io_buffer_size, prefix - written)
             # ---- fill phase: device→staging copy (coalescing queue) ----
-            tf = time.perf_counter()
             filled = 0
-            while filled < target:
-                if pending is None:
-                    # early flush: submit the aligned bytes in hand
-                    # rather than waiting for the snapshot watermark
-                    if (filled and filled % align == 0
-                            and would_block is not None and would_block()):
-                        break
-                    try:
-                        pending = next(seg_iter)
-                    except StopIteration:
-                        break
-                take = min(len(pending), target - filled)
-                buf[filled:filled + take] = pending[:take]
-                pending = pending[take:] if take < len(pending) else None
-                filled += take
-            stats.fill_seconds += time.perf_counter() - tf
+            with spans.span("write.copy") as sp:
+                while filled < target:
+                    if pending is None:
+                        # early flush: submit the aligned bytes in hand
+                        # rather than waiting for the snapshot watermark
+                        if (filled and filled % align == 0
+                                and would_block is not None
+                                and would_block()):
+                            break
+                        try:
+                            pending = next(seg_iter)
+                        except StopIteration:
+                            break
+                    take = min(len(pending), target - filled)
+                    buf[filled:filled + take] = pending[:take]
+                    pending = pending[take:] if take < len(pending) \
+                        else None
+                    filled += take
+                sp.nbytes = filled
             if filled == 0:        # segments exhausted (total overstated)
                 break
             if crc is not None:    # single-pass integrity: bytes are hot
-                tc = time.perf_counter()
-                crc = zlib.crc32(buf[:filled], crc)
-                stats.crc_seconds += time.perf_counter() - tc
+                with spans.timed("write.crc", filled) as sp:
+                    crc = zlib.crc32(buf[:filled], crc)
+                stats.crc_seconds += sp.seconds
             # ---- flush phase: staging→disk, queue_depth in flight ------
             tickets[bi] = flusher.submit(buf[:filled], file_offset + written)
             if not cfg.double_buffer:       # synchronous single-buffer
@@ -183,7 +186,8 @@ def write_stream(path: str, segments: Iterable[memoryview], total: int,
                 tickets[bi] = None
             written += filled
             bi = (bi + 1) % nbuf
-        flusher.drain()
+        with spans.span("write.wait"):
+            flusher.drain()
     finally:
         flusher.close()
         os.close(fd)
@@ -192,18 +196,19 @@ def write_stream(path: str, segments: Iterable[memoryview], total: int,
 
     if suffix:
         # buffered append of the unaligned tail into the SAME file
-        tf = time.perf_counter()
-        tail = bytearray()
-        if pending is not None:
-            tail += bytes(pending)
-        for s in seg_iter:
-            tail += bytes(s)
-        tail = bytes(tail)[:suffix] if len(tail) > suffix else bytes(tail)
-        stats.fill_seconds += time.perf_counter() - tf
+        with spans.span("write.copy") as sp:
+            tail = bytearray()
+            if pending is not None:
+                tail += bytes(pending)
+            for s in seg_iter:
+                tail += bytes(s)
+            tail = bytes(tail)[:suffix] if len(tail) > suffix \
+                else bytes(tail)
+            sp.nbytes = len(tail)
         if crc is not None and tail:
-            tc = time.perf_counter()
-            crc = zlib.crc32(tail, crc)
-            stats.crc_seconds += time.perf_counter() - tc
+            with spans.timed("write.crc", len(tail)) as sp:
+                crc = zlib.crc32(tail, crc)
+            stats.crc_seconds += sp.seconds
         fd2 = os.open(path, os.O_WRONLY)
         tw = time.perf_counter()
         try:

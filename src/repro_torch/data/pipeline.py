@@ -18,6 +18,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch import spans
+
 _M32 = np.uint64(0xFFFFFFFF)
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -121,11 +123,14 @@ class TokenStream:
         return cls(cfg, position=int(state["position"]), device=device)
 
     def _batch_at(self, index: int):
-        key = fold_in(prng_key(self.cfg.seed), index)
-        k1, _k2 = split(key)
-        tokens = randint(k1, (self.cfg.global_batch, self.cfg.seq_len + 1),
-                         0, self.cfg.vocab_size)
-        tokens = torch.from_numpy(tokens).to(self.device)
+        with spans.span("data.draw"):
+            key = fold_in(prng_key(self.cfg.seed), index)
+            k1, _k2 = split(key)
+            tokens = randint(k1, (self.cfg.global_batch,
+                                  self.cfg.seq_len + 1),
+                             0, self.cfg.vocab_size)
+        with spans.span("data.h2d", tokens.nbytes):
+            tokens = torch.from_numpy(tokens).to(self.device)
         return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
 
     def __next__(self):

@@ -6,6 +6,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch import spans
 from repro_torch.optim import adam
 from repro_torch.optim.adam import AdamConfig, AdamState
 from repro_torch.tree import leaves, tree_map
@@ -32,7 +33,7 @@ def make_train_step(model, opt_cfg: AdamConfig, gas: int = 1):
     gas > 1: gradient accumulation — the batch's leading dim is split
     into ``gas`` microbatches run sequentially (paper §2.1.2)."""
 
-    def train_step(state: TrainState, batch):
+    def step(state: TrainState, batch):
         ps = leaves(state.params)
         for p in ps:
             p.requires_grad_(True)
@@ -53,9 +54,14 @@ def make_train_step(model, opt_cfg: AdamConfig, gas: int = 1):
                 loss = loss + lm.detach()
             grads = [g / gas for g in grads]
             loss = loss / gas
-        adam.apply_(opt_cfg, grads, state.params, state.opt)
+        with spans.span("train.adam"):
+            adam.apply_(opt_cfg, grads, state.params, state.opt)
         metrics = {"loss": loss.detach().float(), "step": state.opt.step}
         return state, metrics
+
+    def train_step(state: TrainState, batch):
+        with spans.span("train.step"):
+            return step(state, batch)
 
     return train_step
 
