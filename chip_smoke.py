@@ -6,7 +6,7 @@
 Phases, each of which exits non-zero on failure:
 
 1. the card: name and power limit (``nvidia-smi``);
-2. build: compile the three CUDA sources of ``src/repro_torch`` (one
+2. build: compile the four CUDA sources of ``src/repro_torch`` (one
    ``nvcc`` each, in parallel), with each kernel's registers and spills
    (``ptxas -v``), dynamic shared memory per block, and the tensor-core
    (HMMA) and FFMA instructions of each flash_attention body in its SASS
@@ -28,11 +28,16 @@ Phases, each of which exits non-zero on failure:
    the reference's sweep, each check with its largest share of the
    allowance — with CUDA-event times (and times replayed from a CUDA
    graph, for the kernel and its library call alike) beside the bound,
-   the plain version and the library call where there is one;
+   the plain version and the library call where there is one; and the
+   fused Adam update (adam_update_, no TPU counterpart) bit-equal to its
+   plain version on every leaf of the main path's model over two steps,
+   with f32 and bf16 gradients, timed there and at the 2.7B benchmark
+   cell's leaves beside its bytes bound, the plain version and the
+   library's fused AdamW;
 4. main path: ``repro_torch`` Trainer on ``stablelm_1_6b`` at full width
    on ``cuda``, checkpointing every step (fastpersist-pipelined,
    keyframe_every=2, device-dirty), with the kernels' launch counts
-   read around it;
+   read around it (the fused Adam update once a leaf a step);
 5. restore: a fresh Trainer restores the latest step bit-equal to the
    live state and data position;
 6. scoring: each layer's bf16 attention output held against the plain
@@ -295,10 +300,12 @@ def _bound(n_bytes: float, ops_seconds: float):
 
 def _zero_counts():
     """Every kernel's launch count to 0, just before a path is driven."""
+    from repro_torch.kernels import adam as kadam
     from repro_torch.kernels import ckpt_pack as cp
     from repro_torch.kernels import ops
     for w in (cp.ckpt_pack_blocks, cp.ckpt_pack_dirty_blocks,
-              cp.ckpt_quant_blocks, ops.flash_attention, ops.ssd_intra_chunk):
+              cp.ckpt_quant_blocks, ops.flash_attention, ops.ssd_intra_chunk,
+              kadam.adam_update_):
         w.launches = 0
 
 
@@ -730,6 +737,161 @@ def _ssd_bound(b, nc, cl, h, p, n) -> dict:
             "flops": products + pairs}   # and the decay's multiply
 
 
+def _adam_scalars(cfg, t: int, scale: float, device):
+    """``adam.apply_``'s 0-d scalars at step ``t`` with the clip scale
+    ``scale`` (the mean's ``1/gas`` in it): (scale, lr, b1c, b2c)."""
+    import torch
+    step = torch.tensor(float(t), device=device)
+    return (torch.tensor(scale, device=device),
+            cfg.lr * torch.clamp(step / cfg.warmup_steps, max=1.0),
+            1 - cfg.b1 ** step, 1 - cfg.b2 ** step)
+
+
+def _adam_leaves(shapes, gen, device):
+    """bf16 weights with their f32 master, m and v after one update's
+    worth of moments: ([params], [master], [m], [v])."""
+    import torch
+    out = ([], [], [], [])
+    for shape in shapes:
+        w = torch.randn(shape, generator=gen, device=device)
+        out[0].append(w.to(torch.bfloat16))
+        out[1].append(out[0][-1].float())
+        out[2].append(torch.randn(shape, generator=gen, device=device) * 1e-3)
+        out[3].append(torch.rand(shape, generator=gen, device=device) * 1e-6)
+        del w
+    return out
+
+
+def _adam_times(cfg, shapes, device, gen) -> dict:
+    """``adam_update_`` over every leaf of ``shapes`` at once (one
+    launch a leaf), with f32 and bf16 gradients, beside its bytes bound,
+    ``adam_plain`` and the library's fused AdamW: ``torch._fused_adamw_``
+    (its ``grad_scale`` carrying the clip scale) after the step count's
+    ``_foreach_add_``, then one ``_foreach_copy_`` into the bf16 weights.
+    The library's update is not bit-equal (it decays the weight before
+    the step and corrects the moments in another order); it is timed
+    for what the hand-written kernel buys beyond bit-equality."""
+    import torch
+    from repro_torch.kernels import adam as kadam
+    from repro_torch.kernels.ref import adam_plain
+    params, master, m, v = _adam_leaves(shapes, gen, device)
+    n = sum(p.numel() for p in params)
+    grads = [torch.randn(p.shape, generator=gen, device=device) * 1e-3
+             for p in params]
+    grads16 = [g.to(torch.bfloat16) for g in grads]
+    scal = _adam_scalars(cfg, 7, 0.25, device)
+    one = torch.ones((), device=device)
+    steps = [torch.full((), 7.0, device=device) for _ in params]
+    lr = scal[1].clone()
+
+    def library():
+        torch._foreach_add_(steps, 1)
+        torch._fused_adamw_(master, grads, m, v, [], steps, lr=lr,
+                            beta1=cfg.b1, beta2=cfg.b2,
+                            weight_decay=cfg.weight_decay, eps=cfg.eps,
+                            amsgrad=False, maximize=False, grad_scale=one,
+                            found_inf=None)
+        torch._foreach_copy_(params, master)
+
+    t = {"ms": _cuda_ms(lambda: kadam.adam_update_(
+            cfg, grads, params, master, m, v, *scal)),
+         "bf16_ms": _cuda_ms(lambda: kadam.adam_update_(
+             cfg, grads16, params, master, m, v, *scal)),
+         "plain_ms": _cuda_ms(lambda: adam_plain(
+             cfg, grads, params, master, m, v, *scal)),
+         "library_ms": _cuda_ms(library),
+         "bound_ms": 30 * n / HBM_BYTES_PER_S * 1e3,
+         "bf16_bound_ms": 28 * n / HBM_BYTES_PER_S * 1e3,
+         "bound_by": "bytes", "params": n, "bytes": 30 * n,
+         "leaves": len(shapes)}
+    del params, master, m, v, grads, grads16, steps
+    torch.cuda.empty_cache()
+    return t
+
+
+def check_adam(device) -> dict:
+    """Phase 3, the fused Adam update (``kernels/adam.py``, a port kernel
+    with no TPU counterpart): ``adam_update_`` held bit for bit against
+    ``adam_plain`` on every leaf of the main path's ``stablelm_1_6b``
+    (full depth; one leaf on the card at a time), two steps from the
+    same state, once with f32 gradients (a sum of 4 micro-batches,
+    ``1/4`` in the clip scale) and once with bf16 ones (gas 1, as on the
+    main path), one launch a leaf a step; then timed over all of its
+    leaves at once and over ``gpt3_2_7b_tp4``'s (the benchmark's 2.7B
+    cell, ``bench/configs``) by :func:`_adam_times`. Returns the
+    ``kernels`` entry (launches filled in by phase 4)."""
+    import torch
+    from bench import common
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import adam as kadam
+    from repro_torch.kernels.ref import adam_plain
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adam import AdamConfig
+    from repro_torch.train.steps import init_train_state
+    from repro_torch.tree import leaves
+
+    def shapes_of(model_cfg):
+        st = init_train_state(build_model(model_cfg), 0, "meta")
+        return [tuple(p.shape) for p in leaves(st.params)]
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    cfg = AdamConfig(warmup_steps=2)          # the steps cross the warm-up
+    shapes = shapes_of(get_config("stablelm_1_6b"))
+    print(f"  adam_update_ against adam_plain, bit for bit: stablelm_1_6b's "
+          f"{len(shapes)} leaves, 2 steps each, f32 and bf16 gradients",
+          flush=True)
+    before = kadam.adam_update_.launches
+    for shape in shapes:
+        for gdt, gas in ((torch.float32, 4), (torch.bfloat16, 1)):
+            kern = _adam_leaves([shape], gen, device)
+            plain = tuple([t.clone() for t in ts] for ts in kern)
+            for t in (1, 2):
+                g = [(torch.randn(shape, generator=gen, device=device)
+                      * 1e-2).to(gdt)]
+                scal = _adam_scalars(cfg, t, 0.5 / gas, device)
+                kadam.adam_update_(cfg, g, *kern, *scal)
+                adam_plain(cfg, g, *plain, *scal)
+            torch.cuda.synchronize()
+            for what, a, b in zip(("param", "master", "m", "v"), kern,
+                                  plain):
+                if not torch.equal(_ints(a[0]), _ints(b[0])):
+                    fail(f"adam_update_ {shape} {gdt} grads: {what} differs "
+                         f"from adam_plain's after 2 steps")
+            del kern, plain, g
+    n_launch = kadam.adam_update_.launches - before
+    if n_launch != 4 * len(shapes):
+        fail(f"adam_update_ launched {n_launch} times over the check; "
+             f"expected {4 * len(shapes)} (one a leaf a step)")
+    print(f"  ok adam_update_: params, master, m, v bit-equal after 2 steps "
+          f"on each of the {len(shapes)} leaves, f32 and bf16 gradients; "
+          f"{n_launch} launches", flush=True)
+    torch.cuda.empty_cache()
+    main = _adam_times(cfg, shapes, device, gen)
+    cell_json = common.load("configs", "gpt3_2_7b_tp4")
+    cell = _adam_times(AdamConfig(**cell_json["optimizer"]),
+                       shapes_of(common.model_config(cell_json)), device, gen)
+    for name, t in (("stablelm_1_6b", main), ("gpt3_2_7b_tp4", cell)):
+        print(f"  time adam_update_ at {name}'s {t['leaves']} leaves "
+              f"({t['params']} params): {t['ms']:.4f} ms with f32 grads "
+              f"({100 * t['bound_ms'] / t['ms']:.1f} % of the bytes bound "
+              f"{t['bound_ms']:.4f} ms), {t['bf16_ms']:.4f} ms with bf16 "
+              f"({100 * t['bf16_bound_ms'] / t['bf16_ms']:.1f} % of "
+              f"{t['bf16_bound_ms']:.4f} ms); plain {t['plain_ms']:.4f} ms, "
+              f"library (_fused_adamw_ + bf16 copy) {t['library_ms']:.4f} "
+              f"ms", flush=True)
+    return {"name": "adam_update_", "route": "cuda",
+            "source": f"{CSRC}/adam.cu",
+            "replaces": "none: src/repro/optim/adam.py:46 is XLA's fusion",
+            "launches": 0, "max_abs_err": 0.0,
+            **{k: main[k] for k in ("ms", "bf16_ms", "plain_ms",
+                                    "library_ms", "bound_ms",
+                                    "bf16_bound_ms", "bound_by", "bytes")},
+            "shape": f"stablelm_1_6b's {main['leaves']} leaves",
+            "gpt3_2_7b_tp4": {k: cell[k] for k in (
+                "ms", "bf16_ms", "plain_ms", "library_ms", "bound_ms",
+                "bf16_bound_ms")}}
+
+
 # ------------------------------------------------------------ phase 4-5
 def _kernel_records(trainer, dirty_block: int) -> int:
     """Records the device-dirty snapshot sends through the kernel: float
@@ -742,8 +904,8 @@ def _kernel_records(trainer, dirty_block: int) -> int:
 
 
 def main_path(device, steps: int, batch: int, seq: int):
-    """Phases 4 and 5. Returns the ckpt_pack launch counts of the main
-    path, the model config, the restored state with the trainer's next
+    """Phases 4 and 5. Returns the ckpt_pack and adam_update_ launch
+    counts of the main path, the model config, the restored state with the trainer's next
     batch (for phase 6), the extras a save of it carries (phase 7) and
     the bytes its two generations held on the disk together (phase 9's
     disk budget)."""
@@ -754,10 +916,11 @@ def main_path(device, steps: int, batch: int, seq: int):
     from repro_torch.configs import get_config
     from repro_torch.core.checkpointer import FastPersistConfig
     from repro_torch.core.partition import Topology
+    from repro_torch.kernels import adam as kadam
     from repro_torch.kernels import ckpt_pack as cp
     from repro_torch.train.trainer import (CheckpointPolicy, Trainer,
                                            TrainerConfig)
-    from repro_torch.tree import flatten
+    from repro_torch.tree import flatten, leaves
 
     cfg = get_config("stablelm_1_6b")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -799,7 +962,8 @@ def main_path(device, steps: int, batch: int, seq: int):
         _, metrics = tr.run()
         wall = time.perf_counter() - t0
         launches = {"ckpt_pack_dirty_blocks": cp.ckpt_pack_dirty_blocks.launches,
-                    "ckpt_pack_blocks": cp.ckpt_pack_blocks.launches}
+                    "ckpt_pack_blocks": cp.ckpt_pack_blocks.launches,
+                    "adam_update_": kadam.adam_update_.launches}
         loss = float(metrics["loss"])
         print(f"  done: loss={loss:.4f} wall={wall:.2f} s "
               f"iter_times_s={[round(t, 3) for t in tr.iter_times]} "
@@ -834,6 +998,10 @@ def main_path(device, steps: int, batch: int, seq: int):
             fail(f"ckpt_pack_dirty_blocks launched "
                  f"{launches['ckpt_pack_dirty_blocks']} times on the delta "
                  f"save; expected {n_kernel}")
+        n_adam = len(leaves(tr.state.params)) * steps
+        if launches["adam_update_"] != n_adam:
+            fail(f"adam_update_ launched {launches['adam_update_']} times "
+                 f"over {steps} steps; expected {n_adam}, one a leaf a step")
 
         # ---- phase 5: a fresh trainer restores the latest step
         live, position = tr.state, tr.data.position
@@ -3256,6 +3424,7 @@ def main():
         if "internvl2" in e:
             print(f"  time {e['name']} at internvl2_26b's "
                   f"{e['internvl2']}", flush=True)
+    entries.append(check_adam(device))
     torch.cuda.empty_cache()
     lap("1-3")
     launches, cfg, state, batch, extras, disk_peak = main_path(

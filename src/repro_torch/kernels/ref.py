@@ -1,7 +1,7 @@
 """Plain PyTorch versions of every kernel (the correctness contract).
-They mirror ``repro.kernels.ref`` and are what the kernel wrappers run
-for tensors on the CPU; on the card the CUDA kernels are held against
-them."""
+They mirror ``repro.kernels.ref`` (but ``adam_plain``, whose kernel has
+no TPU counterpart) and are what the kernel wrappers run for tensors on
+the CPU; on the card the CUDA kernels are held against them."""
 from __future__ import annotations
 
 import math
@@ -101,3 +101,19 @@ def ssd_intra_chunk_plain(xc, dAc, Bc, Cc):
     L = torch.exp(segsum(dAc.permute(0, 1, 3, 2)))       # (b,nc,h,cl,cl)
     scores = torch.einsum("bclhn,bcshn->bchls", Cc, Bc)
     return torch.einsum("bchls,bchls,bcshp->bclhp", scores, L, xc)
+
+
+@torch.no_grad()
+def adam_plain(cfg, grads, params, master, m, v, scale, lr, b1c, b2c):
+    """The mixed-precision Adam update of each leaf, in place, in plain
+    PyTorch ops: the arithmetic that the fused kernel reproduces bit for
+    bit on the card. ``scale`` (the gradient's multiplier), ``lr``,
+    ``b1c`` (1 - b1^t) and ``b2c`` are 0-d f32 tensors; b1, b2, eps and
+    weight_decay come from ``cfg``."""
+    for g, p, mw, mm, vv in zip(grads, params, master, m, v):
+        g = g.float() * scale
+        mm.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+        vv.mul_(cfg.b2).add_((1 - cfg.b2) * g.square())
+        update = (mm / b1c) / (torch.sqrt(vv / b2c) + cfg.eps)
+        mw.sub_(lr * (update + cfg.weight_decay * mw))
+        p.copy_(mw)

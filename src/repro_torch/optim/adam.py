@@ -14,6 +14,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.kernels.adam import adam_update_
 from repro_torch.tree import leaves, tree_map
 
 
@@ -44,27 +45,26 @@ def init(params_bf16) -> AdamState:
 
 
 @torch.no_grad()
-def apply_(cfg: AdamConfig, grads, params, state: AdamState):
+def apply_(cfg: AdamConfig, grads, params, state: AdamState, gas: int = 1):
     """One Adam step, IN PLACE: ``state`` (step, master, m, v) and the
     bf16 ``params`` are updated leaf by leaf under ``torch.no_grad()``.
     Updating in place saves the second copy of the 14 B/param state that
     JAX's functional update avoided with buffer donation; it is also why
     the trainer must wait for the previous checkpoint's snapshot before
     it calls this (the §4.3 sync point). ``grads`` is a list in the
-    order of ``leaves(params)``."""
+    order of ``leaves(params)``: the SUM of ``gas`` micro-batch
+    gradients. The mean's ``1/gas`` folds into the norm and the clip
+    scale; for a power-of-two ``gas`` each of those steps is exact, so
+    the update is bit-equal to one of the mean gradient.
+
+    The per-leaf update is ``kernels.adam.adam_update_``: the fused CUDA
+    kernel on the card, its plain version elsewhere."""
     state.step.add_(1)
     step = state.step.float()
-    gnorm = torch.sqrt(sum(g.float().square().sum() for g in grads))
-    scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
+    gnorm = torch.sqrt(sum(g.float().square().sum() for g in grads)) / gas
+    scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0) / gas
     lr = cfg.lr * torch.clamp(step / cfg.warmup_steps, max=1.0)
     b1c = 1 - cfg.b1 ** step
     b2c = 1 - cfg.b2 ** step
-    for g, p, mw, m, v in zip(grads, leaves(params),
-                              leaves(state.master),
-                              leaves(state.m), leaves(state.v)):
-        g = g.float() * scale
-        m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
-        v.mul_(cfg.b2).add_((1 - cfg.b2) * g.square())
-        update = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
-        mw.sub_(lr * (update + cfg.weight_decay * mw))
-        p.copy_(mw)
+    adam_update_(cfg, grads, leaves(params), leaves(state.master),
+                 leaves(state.m), leaves(state.v), scale, lr, b1c, b2c)

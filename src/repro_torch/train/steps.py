@@ -26,12 +26,26 @@ def init_train_state(model, seed: int, device) -> TrainState:
     return TrainState(params, adam.init(params))
 
 
+def _accumulate(acc, grads):
+    """The f32 sum of the micro-batch gradients so far: the first is
+    written (no zeros, no add), each later one added as it is, which
+    ``add_`` promotes (no f32 copy). Taking ``grads`` as an argument lets
+    them go before the next micro-batch's forward."""
+    if acc is None:
+        return [g.float() for g in grads]
+    for a, g in zip(acc, grads):
+        a.add_(g)
+    return acc
+
+
 def make_train_step(model, opt_cfg: AdamConfig, gas: int = 1):
     """Returns train_step(state, batch) -> (state, metrics). The state is
     updated in place (see :func:`repro_torch.optim.adam.apply_`).
 
     gas > 1: gradient accumulation — the batch's leading dim is split
-    into ``gas`` microbatches run sequentially (paper §2.1.2)."""
+    into ``gas`` microbatches run sequentially (paper §2.1.2); their
+    gradients are summed in f32 and Adam takes the mean's ``1/gas`` in
+    its clip scale (:func:`repro_torch.optim.adam.apply_`)."""
 
     def step(state: TrainState, batch):
         ps = leaves(state.params)
@@ -41,21 +55,18 @@ def make_train_step(model, opt_cfg: AdamConfig, gas: int = 1):
             loss = model.loss(state.params, batch)
             grads = torch.autograd.grad(loss, ps)
         else:
-            grads = [torch.zeros_like(p, dtype=torch.float32)
-                     for p in ps]
+            grads = None
             loss = 0.0
             for mb in range(gas):
                 micro = {k: v.reshape(gas, v.shape[0] // gas,
                                       *v.shape[1:])[mb]
                          for k, v in batch.items()}
                 lm = model.loss(state.params, micro)
-                for acc, g in zip(grads, torch.autograd.grad(lm, ps)):
-                    acc.add_(g.float())
+                grads = _accumulate(grads, torch.autograd.grad(lm, ps))
                 loss = loss + lm.detach()
-            grads = [g / gas for g in grads]
             loss = loss / gas
         with spans.span("train.adam"):
-            adam.apply_(opt_cfg, grads, state.params, state.opt)
+            adam.apply_(opt_cfg, grads, state.params, state.opt, gas)
         metrics = {"loss": loss.detach().float(), "step": state.opt.step}
         return state, metrics
 
