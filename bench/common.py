@@ -1,9 +1,10 @@
 """What the harness shares: a cell's files, the run's context, its spans,
-the program's model configuration built from a configuration file, and
-the comparisons that decide ``correct``."""
+a configuration's family module, the program's model configuration that
+it builds, and the comparisons that decide ``correct``."""
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import json
 import os
 import statistics
@@ -20,11 +21,41 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "repro", "benchmarks")
 #: the most a run may ask the program to write to disk
 WRITE_BUDGET = int(2.5 * 2 ** 30)
 
+#: the family of a configuration file without a ``family`` key
+DEFAULT_FAMILY = "gpt"
+
 
 def load(kind: str, name: str) -> dict:
     """``bench/<kind>/<name>.json``."""
     with open(os.path.join(BENCH, kind, name + ".json")) as f:
         return json.load(f)
+
+
+def module(kind: str, name: str):
+    """``bench/<kind>/<name>.py``, found by its name and loaded once."""
+    key = f"bench.{kind}.{name}"
+    if key not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            key, os.path.join(BENCH, kind, name + ".py"))
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[key] = mod
+        try:
+            spec.loader.exec_module(mod)
+        except BaseException:
+            del sys.modules[key]
+            raise
+    return sys.modules[key]
+
+
+def family_name(cfg: dict) -> str:
+    return cfg.get("family", DEFAULT_FAMILY)
+
+
+def family(cfg: dict):
+    """The configuration's family module, ``bench/families/<family>.py``:
+    ``program_config``, ``param_shapes``, ``train_flops_per_step`` and,
+    optionally, ``make_weights``."""
+    return module("families", family_name(cfg))
 
 
 def cell_params(workload: dict) -> tuple:
@@ -64,16 +95,9 @@ class Ctx:
 
 
 def model_config(cfg: dict):
-    """The program's ``ModelConfig`` for a configuration file."""
-    from repro_torch.configs.base import ModelConfig
-    return ModelConfig(
-        name=cfg["name"], arch_type="dense", n_layers=cfg["n_layers"],
-        d_model=cfg["d_model"], n_heads=cfg["n_heads"],
-        n_kv_heads=cfg["n_heads"], head_dim=cfg["head_dim"],
-        d_ff=cfg["d_ff"], vocab_size=cfg["vocab_size"],
-        tie_embeddings=True, gated_mlp=bool(cfg.get("gated_mlp")),
-        rope_theta=cfg["rope_theta"], norm_eps=cfg["norm_eps"],
-        source=cfg["source"])
+    """The program's ``ModelConfig`` for a configuration file, as its
+    family builds it."""
+    return family(cfg).program_config(cfg)
 
 
 def sync(device):

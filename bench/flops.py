@@ -1,30 +1,16 @@
 """Model FLOPs of one training step of a configuration's share: what the
 forward and backward passes need, with nothing recomputed and causal
-attention counted over the pairs it keeps."""
+attention counted over the pairs it keeps. Each family counts its own
+(``bench/families/<family>.py``)."""
 from __future__ import annotations
 
-
-def matmul_params(cfg: dict) -> int:
-    """Parameters that enter a matrix product once per token: every
-    projection, and the tied embedding as the output head."""
-    d, H, hd = cfg["d_model"], cfg["n_heads"], cfg["head_dim"]
-    mlp = (3 if cfg.get("gated_mlp") else 2) * d * cfg["d_ff"]
-    return cfg["vocab_size"] * d + cfg["n_layers"] * (4 * d * H * hd + mlp)
-
-
-def attention_flops(cfg: dict) -> int:
-    """Forward FLOPs of the score and value products of one sequence:
-    2 * hd multiply-adds per kept (query, key) pair and head, twice."""
-    S = cfg["seq_len"]
-    pairs = S * (S + 1) // 2
-    return cfg["n_layers"] * cfg["n_heads"] * 2 * (2 * cfg["head_dim"]
-                                                   * pairs)
+from bench import common
 
 
 def train_flops_per_step(cfg: dict, rows: int) -> int:
-    """Forward and backward (3x the forward) of ``rows`` sequences."""
-    per_seq = 2 * matmul_params(cfg) * cfg["seq_len"] + attention_flops(cfg)
-    return 3 * rows * per_seq
+    """Forward and backward of ``rows`` sequences, as the configuration's
+    family counts them."""
+    return common.family(cfg).train_flops_per_step(cfg, rows)
 
 
 def peak(device_name: str, key: str = "bf16_flops_per_s"):

@@ -1,11 +1,16 @@
 """The inputs a run hands to the program and to the reference alike: the
-share's weights, made from the seed on the device in one draw, in the
-type the program trains them in (bfloat16)."""
+share's weights, made from the seed on the device (by default in one
+draw), in the type the program trains them in (bfloat16), and the sizes
+of the state.
+What a family names, its leaves and their shapes, comes from its module
+in ``bench/families/``."""
 from __future__ import annotations
 
 import math
 
 import torch
+
+from bench import common
 
 #: bytes of training state per parameter: bfloat16 weights, float32
 #: master weights, first and second moments
@@ -14,24 +19,9 @@ STATE_BYTES_PER_PARAM = 2 + 4 + 4 + 4
 
 def param_shapes(cfg: dict) -> dict:
     """``{name: (shape, fan_in)}`` of the share's parameters, named as the
-    checkpoint names them; ``fan_in`` is None for a norm's scale."""
-    d, H, hd = cfg["d_model"], cfg["n_heads"], cfg["head_dim"]
-    L, ff, V = cfg["n_layers"], cfg["d_ff"], cfg["vocab_size"]
-    shapes = {
-        "embed": ((V, d), d),
-        "final_norm": ((d,), None),
-        "layers/attn/wq": ((L, d, H * hd), d),
-        "layers/attn/wk": ((L, d, H * hd), d),
-        "layers/attn/wv": ((L, d, H * hd), d),
-        "layers/attn/wo": ((L, H * hd, d), H * hd),
-        "layers/ln1": ((L, d), None),
-        "layers/ln2": ((L, d), None),
-        "layers/mlp/wi": ((L, d, ff), d),
-        "layers/mlp/wo": ((L, ff, d), ff),
-    }
-    if cfg.get("gated_mlp"):
-        shapes["layers/mlp/wg"] = ((L, d, ff), d)
-    return shapes
+    checkpoint names them, from the configuration's family module;
+    ``fan_in`` is None for a norm's scale."""
+    return common.family(cfg).param_shapes(cfg)
 
 
 def param_count(cfg: dict) -> int:
@@ -45,16 +35,25 @@ def state_bytes(cfg: dict) -> int:
 
 
 def make_weights(cfg: dict, seed: int, device) -> dict:
-    """``{name: bfloat16 tensor}``: U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for
-    the matrices, ones for the norms, from one draw of a generator on
-    ``device`` seeded with ``seed``."""
-    shapes = param_shapes(cfg)
-    dense = [(n, s, f) for n, (s, f) in sorted(shapes.items()) if f]
+    """``{name: bfloat16 tensor}`` from ``seed``: the family module's own
+    ``make_weights`` where it has one, else ``uniform_weights``."""
+    fam = common.family(cfg)
+    if hasattr(fam, "make_weights"):
+        return fam.make_weights(cfg, seed, device)
+    return uniform_weights(param_shapes(cfg), seed, device)
+
+
+def uniform_weights(shapes: dict, seed: int, device) -> dict:
+    """U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for the matrices of ``shapes``
+    (``param_shapes``' form), ones for the norms, from one draw of a
+    generator on ``device`` seeded with ``seed``, over the matrices in the
+    order of their names."""
+    matrices = [(n, s, f) for n, (s, f) in sorted(shapes.items()) if f]
     gen = torch.Generator(device=device).manual_seed(int(seed))
-    u = torch.rand(sum(math.prod(s) for _, s, _ in dense),
+    u = torch.rand(sum(math.prod(s) for _, s, _ in matrices),
                    generator=gen, device=device)
     out, pos = {}, 0
-    for name, shape, fan_in in dense:
+    for name, shape, fan_in in matrices:
         n = math.prod(shape)
         scale = 1.0 / math.sqrt(fan_in)
         out[name] = u[pos:pos + n].mul(2 * scale).sub_(scale).to(

@@ -36,7 +36,8 @@ import shutil  # noqa: E402
 import tempfile  # noqa: E402
 from collections import defaultdict  # noqa: E402
 
-from bench import common, run, trace  # noqa: E402
+# run: imported for the build and kernel cache directories it sets
+from bench import common, run, trace  # noqa: E402,F401
 
 #: spans of the save threads that may slow the training thread
 SAVE_SPANS = ("snapshot.", "write.", "commit.")
@@ -177,9 +178,7 @@ def collect(ctx, generator: str = "train_ckpt") -> tuple:
     where the run was traced, ``{"dev", "harness", "w0", "w1"}`` of its
     stretch."""
     from repro_torch import spans
-    gen = run.load_by_path(os.path.join(common.BENCH, "generators",
-                                        generator + ".py"),
-                           "bench.generators." + generator)
+    gen = common.module("generators", generator)
     seen = {}
     plain = trace.Stretch.result
 

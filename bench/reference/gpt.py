@@ -1,5 +1,6 @@
-"""The configuration's one-chip share of a GPT decoder, in float32, for
-the loss and its gradient (through autograd, plain PyTorch).
+"""The reference of the ``gpt`` family: the configuration's one-chip
+share of a GPT decoder, in float32, for the loss and its gradient
+(through autograd, plain PyTorch).
 
 It computes what the program's dense decoder computes, which departs from
 the published GPT-3 in three places that the program inherits from its
@@ -21,12 +22,6 @@ from __future__ import annotations
 import math
 
 import torch
-
-
-def no_tf32():
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
 
 
 def rmsnorm(x, w, eps):

@@ -1,11 +1,20 @@
 """The reference's first training steps from the same weights and token
 stream as the program: the losses, the first gradient as the optimizer
-gets it (clipped), and each leaf's change over the steps."""
+gets it (clipped), and each leaf's change over the steps. The loss is
+the configuration's family's, ``loss(cfg, tree, tokens, labels)`` of
+``bench/reference/<family>.py``."""
 from __future__ import annotations
 
 import torch
 
-from bench.reference import adam, gpt, tokens
+from bench import common
+from bench.reference import adam, tokens
+
+
+def no_tf32():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
 
 
 def unflat(flat: dict) -> dict:
@@ -26,7 +35,8 @@ def follow(cfg: dict, hp: dict, seed: int, w0: dict, n_steps: int,
     ``dtype``: float32 for the reference, bfloat16 for the control.
     Returns ``{"loss": [..], "grad": {name: norm}, "delta": {name:
     norm}}``, each norm in float64 on the host."""
-    gpt.no_tf32()
+    no_tf32()
+    loss = common.module("reference", common.family_name(cfg)).loss
     master = {k: v.to(device=device, dtype=dtype).clone()
               for k, v in w0.items()}
     opt = adam.init(master)
@@ -44,7 +54,7 @@ def follow(cfg: dict, hp: dict, seed: int, w0: dict, n_steps: int,
         n_micro = rows // micro
         for j in range(n_micro):
             sl = slice(j * micro, (j + 1) * micro)
-            lm = gpt.loss(cfg, tree, tok[sl], lab[sl]) / n_micro
+            lm = loss(cfg, tree, tok[sl], lab[sl]) / n_micro
             for k, g in zip(leaves, torch.autograd.grad(lm, list(
                     leaves.values()))):
                 grads[k] += g

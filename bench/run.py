@@ -10,14 +10,14 @@ cell reports in ``bench/metrics/<metric>.py``. It prints the compared
 numbers beside their limits as the last lines of standard error (after a
 line of the set-up's phases in seconds), the bytes it asked the program
 to write on the line before the last of standard output, and the result
-as one JSON object on the last line.
+as one JSON object on the last line. A cell whose planned bytes, or a run
+whose written bytes, exceed ``common.WRITE_BUDGET`` is refused.
 """
 import time
 
 T_PROCESS = time.perf_counter()
 
 import argparse  # noqa: E402
-import importlib.util  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import shutil  # noqa: E402
@@ -32,13 +32,6 @@ for var, sub in (("TORCH_EXTENSIONS_DIR", "torch_extensions"),
     os.environ[var] = os.path.join(ROOT, ".bench_cache", sub)
 
 from bench import common, inputs  # noqa: E402
-
-
-def load_by_path(path: str, name: str):
-    spec = importlib.util.spec_from_file_location(name, path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def planned_writes(cfg: dict, workload: dict) -> int:
@@ -87,9 +80,7 @@ def main(argv=None) -> int:
         return 3
 
     generator, params = common.cell_params(workload)
-    traffic = load_by_path(os.path.join(common.BENCH, "generators",
-                                        generator + ".py"),
-                           "bench.generators." + generator)
+    traffic = common.module("generators", generator)
     t_run = time.perf_counter()
     base = os.environ.get("TMPDIR") or os.path.join(ROOT, ".bench_tmp")
     os.makedirs(base, exist_ok=True)
@@ -103,21 +94,31 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
 
+    return report(args, spec, workload, cfg, out, t_run)
+
+
+def report(args, spec: dict, workload: dict, cfg: dict, out: dict,
+           t_run: float) -> int:
+    """Holds a finished run to the write budget and the forbidden modules,
+    then prints its result; returns the exit code."""
+    if out["bytes_written"] > common.WRITE_BUDGET:
+        print(f"refused: {args.workload} wrote {out['bytes_written']} "
+              f"bytes, over {common.WRITE_BUDGET}", file=sys.stderr)
+        return 6
     found = common.forbidden_loaded()
     if found:
         print(f"refused: the run loaded {found}", file=sys.stderr)
         return 4
 
+    import torch
+    chips = int(workload["chips"])
     setup_s = out["setup_end"] - T_PROCESS
     metrics = {}
     if args.trace:
         rec = dict(out["records"], config=cfg,
                    device=torch.cuda.get_device_name(0))
         for m in metrics_for(spec, "per_layer", args.workload):
-            reader = load_by_path(os.path.join(common.BENCH, "metrics",
-                                               m["name"] + ".py"),
-                                  "bench.metrics." + m["name"])
-            v = reader.read(rec)
+            v = common.module("metrics", m["name"]).read(rec)
             if v is not None:
                 metrics[m["name"]] = {"value": v, "unit": m["unit"]}
     else:

@@ -1,5 +1,6 @@
 """The model-FLOP count behind train_mfu against a count by hand."""
 from bench import flops
+from bench.families import gpt
 
 
 def test_train_flops_by_hand():
@@ -14,6 +15,8 @@ def test_train_flops_by_hand():
     attn = 2 * (2 * 2 * 4 * pairs)              # scores and values, 2 heads
     fwd = tok * (2 * per_layer + head) + 2 * attn
     assert flops.train_flops_per_step(cfg, rows=5) == 3 * 5 * fwd
+    assert gpt.matmul_params(cfg) == (2 * per_layer + head) // 2
+    assert gpt.attention_flops(cfg) == 2 * attn
 
 
 def test_peak_table():

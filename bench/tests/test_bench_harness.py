@@ -1,14 +1,17 @@
 """The harness on the CPU at a tiny size: the training traffic end to end
 with its reference comparison under each backend, the refusal to measure
-without a card, a cell found by its file alone, and the trace
-reduction."""
+without a card or past the write budget, the blocking cell's stall and
+commit latency read per layer, a cell found by its file alone, and the
+trace reduction."""
+import argparse
 import json
 import os
+import time
 
 import pytest
 
 from bench import common, run, trace
-from bench.tests.conftest import TRAIN
+from bench.tests.conftest import TINY, TRAIN
 from bench.generators import train_ckpt
 
 
@@ -40,6 +43,53 @@ def test_refuses_to_measure_without_a_card(capsys):
                    "1", "--seconds", "1", "--trace", "0"])
     out = capsys.readouterr()
     assert rc != 0 and out.out == "" and "CUDA" in out.err
+
+
+def test_a_cell_planned_past_the_budget_is_refused(monkeypatch, capsys):
+    monkeypatch.setattr(common, "WRITE_BUDGET", 1 << 30)
+    rc = run.main(["--workload", "gpt3_2_7b_tp4.train_overlap", "--seed",
+                   "1", "--seconds", "1", "--trace", "0"])
+    out = capsys.readouterr()
+    assert rc != 0 and out.out == ""
+    assert "refused:" in out.err and "would write" in out.err
+
+
+def test_a_run_that_wrote_past_the_budget_is_refused(make_ctx, monkeypatch,
+                                                     capsys):
+    """A family whose count understates its state plans within the budget
+    and writes past it: the run's own bytes refuse it."""
+    out = train_ckpt.run(make_ctx(dict(TRAIN)))
+    wl = common.load("workloads", "gpt3_1_3b_tp2.train_overlap")
+    with open(os.path.join(common.ROOT, "BENCHMARK.json")) as f:
+        spec = json.load(f)
+    args = argparse.Namespace(workload=wl["name"], trace=0)
+    monkeypatch.setattr(common, "WRITE_BUDGET", out["bytes_written"] - 1)
+    capsys.readouterr()
+    rc = run.report(args, spec, wl, TINY, out, time.perf_counter())
+    printed = capsys.readouterr()
+    assert rc != 0 and printed.out == ""
+    assert f"refused: {wl['name']} wrote {out['bytes_written']} bytes" in \
+        printed.err
+
+
+def test_blocking_stall_and_commit_latency_are_read_per_layer(make_ctx):
+    """The blocking cell reports tokens/s and set-up end to end; its stall
+    and commit latency are per-layer readings of the generator's own."""
+    out = train_ckpt.run(make_ctx(dict(TRAIN, backend="fastpersist")))
+    e2e, rec = out["end_to_end"], out["records"]
+    stall = common.module("metrics", "save_stall_s").read
+    latency = common.module("metrics", "commit_latency_s").read
+    assert stall(rec) == e2e["ckpt_stall_s"] > 0
+    assert latency(rec) == pytest.approx(e2e["commit_s"]) and e2e["commit_s"]
+    assert latency(dict(rec, commit_s=[1.0, None])) is None
+    assert latency({}) is None
+    with open(os.path.join(common.ROOT, "BENCHMARK.json")) as f:
+        spec = json.load(f)
+    cell = "gpt3_2_7b_tp4.train_blocking"
+    assert {m["name"] for m in run.metrics_for(spec, "end_to_end", cell)} \
+        == {"train_tokens_per_s", "setup_s"}
+    assert {"save_stall_s", "commit_latency_s"} <= {
+        m["name"] for m in run.metrics_for(spec, "per_layer", cell)}
 
 
 def test_a_new_cell_file_is_found_without_an_edit(capsys):

@@ -3,12 +3,11 @@ on a synthetic record, on a record of a program that lacks the field,
 and on a CPU run of the training traffic; the idle gaps of a trace split
 by the program's spans; and ``bench/program_breakdown.py``'s readings,
 synthetic and from a CPU run with the recorder on."""
-import os
 import time
 
 import pytest
 
-from bench import common, program_breakdown, run, trace
+from bench import common, program_breakdown, trace
 from bench.generators import train_ckpt
 from bench.tests.conftest import TRAIN
 
@@ -18,9 +17,7 @@ T = 1.0
 
 
 def _reader(name):
-    return run.load_by_path(os.path.join(common.BENCH, "metrics",
-                                         name + ".py"),
-                            "bench.metrics." + name)
+    return common.module("metrics", name)
 
 
 def _dev():
