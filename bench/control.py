@@ -10,7 +10,8 @@ set-up's steps against the reference: the lower readings), then, on
 master weights and moments in bfloat16 (``train_ckpt.control_step``);
 ``control_ckpt``, the program's own lower-precision path, int8-quantized
 checkpoints, a whole run with no measured window; and each fault, a whole
-run likewise. One JSON line per reading on standard output.
+run likewise (``faults.variants``). One JSON line per reading on
+standard output.
 """
 import argparse
 import json
@@ -35,8 +36,7 @@ def reading(ctx, variant: str, seed: int):
         trainer, w0 = train_ckpt.build(ctx, ctx.params["backend"], {})
         n = ctx.params.get("warm_steps", 1)
         prog = train_ckpt.warm_up(ctx, trainer, w0, n)
-        trainer.state = None
-        trainer.engine.close()
+        train_ckpt.release(ctx, trainer)
         ref = {}
         checks = train_ckpt.compare(ctx, w0, prog, n, EVERY, ref)
         kept = common.moving_leaves(ref["grad"])
@@ -68,10 +68,10 @@ def main():
     wl = common.load("workloads", args.workload)
     cfg = common.load("configs", wl["config"])
     plan = [("sound", args.first_seed + i) for i in range(args.sound)]
+    variants = faults.variants(common.cell_params(wl)[1])
     for i in range(args.faulty):
         seed = args.first_seed + 1000 + i
-        plan += [(v, seed) for v in ["control_step", "control_ckpt",
-                                     *faults.FAULTS]]
+        plan += [(v, seed) for v in variants]
     base = os.environ.get("TMPDIR") or os.path.join(ROOT, ".bench_tmp")
     os.makedirs(base, exist_ok=True)
     for variant, seed in plan:

@@ -50,14 +50,18 @@ def half_batch():
 
 
 def altered_save():
-    """One value of the state altered where the save takes it."""
+    """One value of the state altered where the save takes it: the first
+    master weight, or the first byte of a rank's part (``bench/extent.py``),
+    which lies inside its extent."""
     from repro_torch.core.engine import CheckpointEngine
     from repro_torch.tree import flatten
     save = CheckpointEngine.save
 
     def patched(self, state, step, extras=None):
+        leaves = flatten(state.opt.master if hasattr(state, "opt")
+                         else state)
         with torch.no_grad():
-            flatten(state.opt.master)[0][1].view(-1)[0] += 1.0
+            leaves[0][1].view(-1)[0] += 1
         return save(self, state, step, extras)
     return _patch(CheckpointEngine, "save", patched)
 
@@ -65,3 +69,14 @@ def altered_save():
 #: the faults a training cell can have
 FAULTS = {"unchanged": unchanged, "half_batch": half_batch,
           "altered": altered_save}
+
+
+def variants(params: dict) -> list:
+    """What a cell's control readings run besides sound runs: the two
+    controls and each fault; a mix that saves one DP rank's extent has no
+    ``control_ckpt``, since its part is bytes, with no float record for
+    int8 saves to quantize."""
+    out = ["control_step", "control_ckpt", *FAULTS]
+    if params.get("rank") is not None:
+        out.remove("control_ckpt")
+    return out

@@ -1,7 +1,8 @@
 """``train_ckpt``: training with checkpoints on a wall-clock interval, the
 generator of every mix in ``bench/traffic/`` (``ckpt_overlap``,
-``ckpt_blocking``), whose parameters (backend, warm steps, saves, traced
-steps) it reads from ``ctx.params``.
+``ckpt_blocking``, ``ckpt_rank_overlap``), whose parameters (backend,
+warm steps, saves, traced steps and, optionally, the DP rank whose extent
+each save writes, ``bench/extent.py``) it reads from ``ctx.params``.
 
 The window runs the loop of the program's ``Trainer.run`` step for step:
 ``next(trainer.data)``, ``engine.wait_snapshot()`` for an async backend,
@@ -11,6 +12,9 @@ steps and saves once, which fills the pinned staging arena. The window
 then issues ``saves`` saves, save ``k`` at the first step boundary after
 ``k / (saves + 1)`` of the window, and ends with ``engine.drain()`` once
 ``--seconds`` have passed: a fixed number of bytes whatever the step time.
+The state (for a rank mix, the bytes of its extent) is copied before each
+of the window's last ``keep_last`` saves, the steps that retention keeps,
+and the check reads each of them back.
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ import os
 import threading
 import time
 
-from bench import common, inputs, trace
+from bench import common, extent, inputs, trace
 from bench.reference import layout
 from bench.reference import train as ref_train
 
@@ -82,12 +86,28 @@ def step_once(ctx, trainer):
     return metrics, stall
 
 
+def part(ctx):
+    """``(rank, D, lo, hi)`` of a mix that saves one DP rank's extent of
+    the stream, else None."""
+    r = extent.rank_of(ctx.config, ctx.params)
+    if r is None:
+        return None
+    rank, dp = r
+    return (rank, dp, *extent.stripe_ranges(inputs.state_bytes(ctx.config),
+                                            dp)[rank])
+
+
 def save(ctx, trainer, step: int):
     """``Trainer._save`` and the retention after it, as ``Trainer.run``
-    calls them."""
+    calls them; for a rank mix, of the rank's part of the state."""
     with ctx.span("save"):
-        h = trainer.engine.save(trainer.state, step,
-                                {"step": step, "data": trainer.data.state()})
+        state = trainer.state
+        extras = {"step": step, "data": trainer.data.state()}
+        p = part(ctx)
+        if p is not None:
+            state = extent.share(state, p[2], p[3])
+            extras.update(rank=p[0], data_parallel=p[1], extent=list(p[2:]))
+        h = trainer.engine.save(state, step, extras)
         trainer.saves.append(h)
         if trainer._retain is not None:
             trainer._retain.after_commit()
@@ -97,6 +117,13 @@ def save(ctx, trainer, step: int):
 def state_copy(state) -> dict:
     from repro_torch.tree import flatten
     return {n: t.detach().clone() for n, t in flatten(state)}
+
+
+def copy_for_check(ctx, state):
+    """What the check holds a save against: a copy of the state, or of
+    the bytes of a rank mix's extent."""
+    p = part(ctx)
+    return state_copy(state) if p is None else extent.flat(state, *p[2:])
 
 
 def warm_up(ctx, trainer, w0: dict, n_steps: int):
@@ -161,6 +188,19 @@ def _watch(handle, t_call: float, out: list, i: int):
         pass
 
 
+def release(ctx, trainer):
+    """Frees the program's state and engine before the reference runs. The
+    state is held in reference cycles after a step, so a collection is what
+    returns its memory; the cache is emptied for the reference."""
+    import gc
+    import torch
+    trainer.state = None
+    trainer.engine.close()
+    gc.collect()
+    if torch.device(ctx.device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
 def run(ctx) -> dict:
     import torch
     p = ctx.params
@@ -173,14 +213,16 @@ def run(ctx) -> dict:
     marks.append(time.perf_counter())
     prog = warm_up(ctx, trainer, w0, p["warm_steps"])
     step = p["warm_steps"]
-    saved = state_copy(trainer.state)
+    n_saves = p["saves"]
+    # the saves that retention keeps are read back: a copy before each
+    copies = {} if n_saves else {step: copy_for_check(ctx, trainer.state)}
+    checked = range(n_saves - min(p["keep_last"], n_saves), n_saves)
     marks.append(time.perf_counter())
     h = save(ctx, trainer, step)
-    written = [h.wait().total_bytes]
+    warm = h.wait()
     metrics = None
 
     # ---- the window
-    n_saves = p["saves"]
     due = [ctx.seconds * (k + 1) / (n_saves + 1) for k in range(n_saves)]
     handles, commits, watchers = [], [None] * n_saves, []
     stall, n_steps = 0.0, 0
@@ -199,7 +241,8 @@ def run(ctx) -> dict:
         if len(handles) < n_saves and now >= due[len(handles)]:
             if stretch is not None and stretch.t0 is None:
                 stretch.start()
-            saved = state_copy(trainer.state)
+            if len(handles) in checked:
+                copies[step] = copy_for_check(ctx, trainer.state)
             t = time.perf_counter()
             h = save(ctx, trainer, step)
             stall += time.perf_counter() - t
@@ -234,18 +277,15 @@ def run(ctx) -> dict:
 
     # ---- after the window: counts, the peak, then the checks
     stats = [h.wait() for h, c in zip(handles, commits) if c is not None]
-    written += [s.total_bytes for s in stats]
+    written = [s.total_bytes for s in [warm, *stats]]
     failed = n_saves - len(stats)
     if metrics is not None:
         failed += int(not torch.isfinite(metrics["loss"]).item())
     peak = (torch.cuda.max_memory_allocated()
             if torch.device(ctx.device).type == "cuda" else 0)
-    checks = check_saved(ctx, trainer, handles[-1].step if handles
-                         else p["warm_steps"], saved)
-    trainer.state = None
-    trainer.engine.close()
-    if torch.device(ctx.device).type == "cuda":
-        torch.cuda.empty_cache()
+    checks = check_saved(ctx, trainer, copies,
+                         [vars(s) for s in [warm, *stats]])
+    release(ctx, trainer)
     checks += compare(ctx, w0, prog, p["warm_steps"], p["limits"])
 
     rec = {"saves": [vars(s) for s in stats], "window_s": window,
@@ -272,14 +312,53 @@ def run(ctx) -> dict:
     }
 
 
-def check_saved(ctx, trainer, step: int, saved) -> list:
-    """The newest committed step read back by the plain layout reader,
-    held byte for byte against the state handed to its save."""
+def check_saved(ctx, trainer, copies: dict, saves=()) -> list:
+    """Each step of ``copies`` (``{step: copy taken at its save}``), the
+    newest the engine's latest, read back by the plain layout reader and
+    held byte for byte against its copy; for a rank mix, as
+    ``rank_mismatch`` holds a part, and every save of ``saves`` (its
+    ``SaveStats`` as dicts) must have taken and written the extent."""
     limit = ctx.params["limits"]["saved_mismatch"]
-    if trainer.engine.latest_step() != step:
+    if not copies or trainer.engine.latest_step() != max(copies):
         return [common.check("saved_mismatch", None, limit)]
-    d = os.path.join(ctx.ckpt_dir, f"ckpt_{step:08d}")
-    records, man, problems = layout.read_step(d)
-    bad = common.state_mismatch(saved, records) + len(problems)
-    bad += int(man.get("extras", {}).get("step") != step)
+    p = part(ctx)
+    bad = 0
+    for step, saved in copies.items():
+        try:
+            records, man, problems = layout.read_step(
+                os.path.join(ctx.ckpt_dir, f"ckpt_{step:08d}"))
+        except OSError:
+            bad += 1
+            continue
+        if p is None:
+            bad += common.state_mismatch(saved, records)
+        else:
+            bad += rank_mismatch(ctx.config, trainer.state, p, saved,
+                                 records, man)
+        bad += len(problems) + int(man.get("extras", {}).get("step") != step)
+    if p is not None:
+        bad += sum(int(not s["total_bytes"] == s["d2h_bytes"] == p[3] - p[2])
+                   for s in saves)
     return [common.check("saved_mismatch", bad, limit)]
+
+
+def rank_mismatch(cfg: dict, state, p: tuple, saved, records: dict,
+                  man: dict) -> int:
+    """Misses of one rank's part read back: the state's stream against the
+    configuration's ``state_bytes``; the manifest's length against the
+    carve of rank r of D; its records' names, dtypes and shapes against the
+    pieces of the state that the extent overlaps; and their bytes, in
+    stream order, against ``saved``, the copy of the extent's bytes."""
+    import torch
+    from repro_torch.tree import flatten
+    _, _, lo, hi = p
+    bad = int(extent.stream_size(flatten(state)) != inputs.state_bytes(cfg))
+    bad += int(man.get("total_bytes") != hi - lo)
+    listed = [(r["name"], r["dtype"], list(r["shape"]))
+              for r in man["records"]]
+    bad += int(listed != [(n, "uint8", [v.numel()]) for n, v in flatten(
+        extent.share(state, lo, hi))])
+    got = [records[r["name"]].reshape(-1).view(torch.uint8)
+           for r in man["records"] if r["name"] in records]
+    got = torch.cat(got) if got else torch.empty(0, dtype=torch.uint8)
+    return bad + int(not torch.equal(got.to(saved.device), saved))

@@ -31,15 +31,17 @@ for var, sub in (("TORCH_EXTENSIONS_DIR", "torch_extensions"),
                  ("TRITON_CACHE_DIR", "triton")):
     os.environ[var] = os.path.join(ROOT, ".bench_cache", sub)
 
-from bench import common, inputs  # noqa: E402
+from bench import common, extent, inputs  # noqa: E402
 
 
 def planned_writes(cfg: dict, workload: dict) -> int:
     """Bytes the cell asks the program to write: its saves times one save
-    of the state, with room for each save's manifest."""
+    (of the state, or of a rank mix's largest extent), with room for each
+    save's manifest."""
     _, p = common.cell_params(workload)
     saves = p.get("saves", 0) + 1
-    return saves * (inputs.state_bytes(cfg) + (1 << 20))
+    return saves * (extent.save_bytes(inputs.state_bytes(cfg), cfg, p)
+                    + (1 << 20))
 
 
 def metrics_for(spec: dict, kind: str, cell: str) -> list:

@@ -109,13 +109,15 @@ def test_every_cell_reports_setup_another_metric_and_a_layer():
 
 
 def test_each_cell_writes_within_the_budget():
-    from bench import run
+    from bench import extent, run
     for w in spec()["workloads"]:
         wl = common.load("workloads", w["name"])
         cfg = common.load("configs", wl["config"])
         assert run.planned_writes(cfg, wl) <= common.WRITE_BUDGET
-        saves = common.cell_params(wl)[1].get("saves", 0) + 1
-        assert saves * inputs.state_bytes(cfg) < 2.5 * 2 ** 30
+        params = common.cell_params(wl)[1]
+        saves = params.get("saves", 0) + 1
+        one = extent.save_bytes(inputs.state_bytes(cfg), cfg, params)
+        assert saves * one < 2.5 * 2 ** 30
 
 
 @pytest.mark.parametrize("name,d,heads,ff,V,gb", [
