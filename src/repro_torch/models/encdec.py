@@ -78,8 +78,7 @@ def encode(params, cfg, frames):
     T = frames.shape[1]
     x = frames + _sinusoid(T, cfg.d_model, frames.dtype, frames.device)
     pos = torch.arange(T, device=frames.device)
-    for i in range(cfg.n_enc_layers):
-        lp = ly.layer_slice(params["enc_layers"], i)
+    for lp in ly.layer_slices(params["enc_layers"], cfg.n_enc_layers):
         h = ly.rmsnorm(x, lp["ln1"], cfg.norm_eps)
         q, k, v = ly.gqa_qkv(lp["attn"], h, cfg)
         o = ly.attention(q, k, v, q_pos=pos, kv_pos=pos, causal=False)
@@ -131,8 +130,8 @@ def _decode_layers(params, cfg, x, enc_out, pos, cache=None,
     """Every decoder block in turn; returns x after the final norm.
     ``remat``: each block's activations recomputed in the backward
     (``jax.checkpoint`` at the reference's encdec.py:122)."""
-    for i in range(cfg.n_layers):
-        lp = ly.layer_slice(params["dec_layers"], i)
+    for i, lp in enumerate(ly.layer_slices(params["dec_layers"],
+                                           cfg.n_layers)):
         kv = {} if cache is None else {"cache_k": cache["k"][i],
                                        "cache_v": cache["v"][i],
                                        "cache_pos": cache_pos}

@@ -82,11 +82,12 @@ def _run(params, cfg, x, ssm_cache, attn_cache, start_pos: int,
     the {"k", "v"} buffers. Returns (x, the new stacked SSM cache)."""
     pos = start_pos + torch.arange(x.shape[1], device=x.device)
     conv, ssm = [], []
-    for g in range(_n_groups(cfg)):
-        group = ly.layer_slice(params["ssm_layers"], g)
+    G = _n_groups(cfg)
+    groups = ly.layer_slices(params["ssm_layers"], G)
+    inv = ly.layer_slices(params["inv_norms"], G)
+    for g in range(G):
         g_conv, g_ssm = [], []
-        for a in range(cfg.attn_every):
-            lp = ly.layer_slice(group, a)
+        for a, lp in enumerate(ly.layer_slices(groups[g], cfg.attn_every)):
             c = (None if ssm_cache is None
                  else {k: v[g, a] for k, v in ssm_cache.items()})
             h = ly.rmsnorm(x, lp["ln"], cfg.norm_eps)
@@ -99,9 +100,8 @@ def _run(params, cfg, x, ssm_cache, attn_cache, start_pos: int,
         ssm.append(torch.stack(g_ssm))
         ck, cv = ((None, None) if attn_cache is None
                   else (attn_cache["k"][g], attn_cache["v"][g]))
-        x = _shared_attn_block(params, cfg, x, params["inv_norms"]["ln1"][g],
-                               params["inv_norms"]["ln2"][g], pos, ck, cv,
-                               start_pos)
+        x = _shared_attn_block(params, cfg, x, inv[g]["ln1"], inv[g]["ln2"],
+                               pos, ck, cv, start_pos)
     return x, {"conv": torch.stack(conv), "ssm": torch.stack(ssm)}
 
 

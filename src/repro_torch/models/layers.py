@@ -417,11 +417,25 @@ def moe_apply_sorted(p, x, cfg, *, n_groups=1, capacity_factor=None):
     return out, aux
 
 
-def layer_slice(tree, i):
-    """Layer ``i`` of parameters stacked on a leading ``n_layers`` axis
-    (the Python loop that stands in for ``lax.scan``)."""
-    return {k: layer_slice(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
+def layer_slices(tree, n):
+    """The ``n`` layers of parameters stacked on a leading ``n``-long axis,
+    as a list of per-layer trees, for the Python loops that stand in for
+    ``lax.scan``: one ``torch.unbind`` per leaf. Under autograd each
+    leaf's backward is then one ``stack`` of the layers' gradients, where
+    taking ``v[i]`` in each of ``n`` iterations gives ``n`` zero tensors
+    of the whole stack, each with one layer's gradient copied in, that
+    autograd adds up. Each call counts in ``layer_slices.calls``."""
+    layer_slices.calls += 1
+    return _unbind(tree, n)
+
+
+def _unbind(tree, n):
+    split = {k: _unbind(v, n) if isinstance(v, dict) else torch.unbind(v)
+             for k, v in tree.items()}
+    return [{k: v[i] for k, v in split.items()} for i in range(n)]
+
+
+layer_slices.calls = 0
 
 
 # ------------------------------------------------------------ Mamba2 SSD

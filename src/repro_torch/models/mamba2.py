@@ -29,8 +29,7 @@ def _layers(params, cfg, x, cache, ssd_kernel=None):
     """Every layer in turn. cache None (forward, prefill) or the stacked
     decode cache; returns (x, the new stacked cache)."""
     conv, ssm = [], []
-    for i in range(cfg.n_layers):
-        lp = ly.layer_slice(params["layers"], i)
+    for i, lp in enumerate(ly.layer_slices(params["layers"], cfg.n_layers)):
         c = None if cache is None else {k: v[i] for k, v in cache.items()}
         h = ly.rmsnorm(x, lp["ln"], cfg.norm_eps)
         y, new_c = ly.mamba2_apply(lp["mixer"], h, cfg, cache=c,

@@ -137,8 +137,7 @@ def _layers(params, cfg, x, pos, cache=None, cache_pos=None, remat=False,
     ``remat``: each block's activations recomputed in the backward."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     glob = _is_global(cfg)
-    for i in range(cfg.n_layers):
-        lp = ly.layer_slice(params["layers"], i)
+    for i, lp in enumerate(ly.layer_slices(params["layers"], cfg.n_layers)):
         if cache is not None and "latent" in cache:
             kw.update(cache_k=cache["latent"][i], cache_pos=cache_pos)
         elif cache is not None:
@@ -276,18 +275,12 @@ def _local_tail(cfg, lp, x, attn):
     return x + out
 
 
-def _pair(params, j):
-    """The j-th (local, global) pair of layers: layers 2j and 2j + 1."""
-    return (ly.layer_slice(params["layers"], 2 * j),
-            ly.layer_slice(params["layers"], 2 * j + 1))
-
-
 def _decode_paired(params, cfg, x, cache, start_pos: int, moe_groups):
     """Decode through the pairs: the local layer against its ring, the
     global one against its full cache. Returns x after the final norm."""
     pos = start_pos + torch.arange(x.shape[1], device=x.device)
-    for j in range(cfg.n_layers // 2):
-        lp_loc, lp_glob = _pair(params, j)
+    layers = ly.layer_slices(params["layers"], cfg.n_layers)
+    for j, (lp_loc, lp_glob) in enumerate(zip(layers[::2], layers[1::2])):
         h = ly.rmsnorm(x, lp_loc["ln1"], cfg.norm_eps)
         attn = _ring_attend(cfg, lp_loc, h, pos, cache["k_loc"][j],
                             cache["v_loc"][j], start_pos)
@@ -309,8 +302,8 @@ def _prefill_paired(params, cfg, x, cache, moe_groups):
     W = cache["k_loc"].shape[2]
     p_i = (Lq - 1) - ((Lq - 1 - torch.arange(W, device=x.device)) % W)
     gather = p_i.clamp(min=0)
-    for j in range(cfg.n_layers // 2):
-        lp_loc, lp_glob = _pair(params, j)
+    layers = ly.layer_slices(params["layers"], cfg.n_layers)
+    for j, (lp_loc, lp_glob) in enumerate(zip(layers[::2], layers[1::2])):
         h = ly.rmsnorm(x, lp_loc["ln1"], cfg.norm_eps)
         q, k, v = ly.gqa_qkv(lp_loc["attn"], h, cfg)
         cos, sin = ly.rope_tables(pos, cfg.resolved_head_dim,
