@@ -893,14 +893,15 @@ def check_adam(device) -> dict:
 
 
 # ------------------------------------------------------------ phase 4-5
-def _kernel_records(trainer, dirty_block: int) -> int:
+def _kernel_records(trainer) -> int:
     """Records the device-dirty snapshot sends through the kernel: float
     records of at least one dirty block (every float record of the full
     model)."""
+    from repro_torch.core.checkpointer import DIRTY_BLOCK
     from repro_torch.tree import flatten
     return sum(1 for _, t in flatten(trainer.state)
                if t.is_floating_point()
-               and t.numel() * t.element_size() >= dirty_block)
+               and t.numel() * t.element_size() >= DIRTY_BLOCK)
 
 
 def main_path(device, steps: int, batch: int, seq: int):
@@ -943,14 +944,15 @@ def main_path(device, steps: int, batch: int, seq: int):
             cfg = dataclasses.replace(cfg, n_layers=n)
         pol = CheckpointPolicy(
             directory=tmp, every=1, backend="fastpersist-pipelined",
-            keyframe_every=2, restore_readers="auto",
-            fp=FastPersistConfig(device_dirty=True, topology=Topology(
-                dp_degree=4, ranks_per_node=4)))
+            restore_readers="auto",
+            fp=FastPersistConfig(device_dirty=True, keyframe_every=2,
+                                 topology=Topology(dp_degree=4,
+                                                   ranks_per_node=4)))
         tcfg = TrainerConfig(model=cfg, steps=steps, global_batch=batch,
                              seq_len=seq, checkpoint=pol, log_every=1)
         tr = Trainer(tcfg, device="cuda")
         tr.init_state()
-        n_kernel = _kernel_records(tr, pol.fp.dirty_block)
+        n_kernel = _kernel_records(tr)
         print(f"  model {cfg.name}: {cfg.n_layers} layers, d_model "
               f"{cfg.d_model}, vocab {cfg.vocab_size}; "
               f"{len(flatten(tr.state))} records, {n_kernel} through the "
@@ -1431,7 +1433,7 @@ def quantized_save(cfg, state, extras, device):
         got, man = rd.load(like=like, device=device, parallel="auto")
         torch.cuda.synchronize()
         t_restore = time.perf_counter() - t0
-        t_deq = rd._backend._inner.last_dequantize_seconds
+        t_deq = rd._payload.ckpt.last_dequantize_seconds
         worst = {}
         restored = dict(flatten(got))
         for (name, a), (_, b) in zip(restored.items(), leaves):
@@ -1515,8 +1517,9 @@ def quantized_chain(cfg, device):
     try:
         pol = CheckpointPolicy(
             directory=tmp, every=1, backend="fastpersist-pipelined",
-            keyframe_every=2, restore_readers="auto",
+            restore_readers="auto",
             fp=FastPersistConfig(device_dirty=True, delta_quantize=True,
+                                 keyframe_every=2,
                                  topology=Topology(dp_degree=4,
                                                    ranks_per_node=4)))
         tcfg = TrainerConfig(model=cfg, steps=STEPS, global_batch=BATCH,
@@ -1797,18 +1800,19 @@ def tiers(device, disk_peak: int) -> int:
         peer_dirs = [os.path.join(peer_root, f"peer{i}") for i in range(2)]
         pol = CheckpointPolicy(
             directory=local, every=1,
-            backend="fastpersist-tiered-pipelined", keyframe_every=2,
-            upload=bucket, replicate_peers=[f"peer{i}={d}@rack{i}" for
-                                            i, d in enumerate(peer_dirs)],
+            backend="fastpersist-tiered-pipelined",
+            upload_store=bucket, peers=[f"peer{i}={d}@rack{i}" for
+                                        i, d in enumerate(peer_dirs)],
             replication_factor=2, failure_domain="rack-trainer",
             retention=RetentionPolicy(keep_last=1), restore_readers="auto",
-            fp=FastPersistConfig(device_dirty=True, topology=Topology(
-                dp_degree=4, ranks_per_node=4)))
+            fp=FastPersistConfig(device_dirty=True, keyframe_every=2,
+                                 topology=Topology(dp_degree=4,
+                                                   ranks_per_node=4)))
         tcfg = TrainerConfig(model=cfg, steps=STEPS, global_batch=BATCH,
                              seq_len=SEQ, checkpoint=pol, log_every=100)
         tr = Trainer(tcfg, device=device)
         tr.init_state()
-        n_kernel = _kernel_records(tr, pol.fp.dirty_block)
+        n_kernel = _kernel_records(tr)
         _zero_counts()             # just before the tiered path
         t0 = time.perf_counter()
         tr.run()                   # drains the upload and peer tiers too
@@ -3046,7 +3050,7 @@ def _figure_kernels(device) -> dict:
     import torch
     from repro_torch.benchmarks import beyond_quant, fig_snapshot
     from repro_torch.core import quant
-    from repro_torch.core.checkpointer import FastPersistConfig
+    from repro_torch.core.checkpointer import DIRTY_BLOCK
     from repro_torch.kernels import ckpt_pack as cp
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import (ckpt_pack_dirty_plain,
@@ -3077,7 +3081,7 @@ def _figure_kernels(device) -> dict:
     mb = fig_snapshot.QUICK_DIRTY_MB
     w = torch.from_numpy(rng.standard_normal(mb * (1 << 20) // 4)
                          .astype(np.float32)).to(device)
-    block = FastPersistConfig().dirty_block // w.element_size()
+    block = DIRTY_BLOCK // w.element_size()
     prev2d = ops.pack_blocks(w, block=block)
     fig_snapshot._touch_pages(w, rng, 0.1)
     x2d = ops._to_blocks(w, block)

@@ -53,7 +53,7 @@ def model_for(device) -> ModelConfig:
 
 def make_trainer(steps, gas, backend, d, device="cuda", model=None):
     """The Trainer of one cell: ``backend`` is a CheckpointEngine
-    registry key, or "none"; every step checkpoints into ``d``."""
+    backend key, or "none"; every step checkpoints into ``d``."""
     shutil.rmtree(d, ignore_errors=True)
     pol = None
     if backend != "none":

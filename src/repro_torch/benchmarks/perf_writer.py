@@ -10,6 +10,7 @@ byte stream; the engine and arena legs save a state that lives on
 ``device`` (on the card: device → pinned arena → disk). Quick runs on
 the card write ``CARD_QUICK_MB`` (the reference's 384 MiB took 42 s on
 an H100 host's disk, too long for the smoke run)."""
+import dataclasses
 import os
 import shutil
 import tempfile
@@ -71,13 +72,13 @@ def timed_engine_save(mb, writer_cfg, device, iters=3, dp=1, n_volumes=1):
     state = {"blob": device_blob(mb, 3, device)}
     sync(device)
     best, commit_s = float("inf"), 0.0
+    fp = FastPersistConfig(
+        strategy="replica", topology=Topology(dp_degree=dp),
+        writer=dataclasses.replace(writer_cfg, checksum=False))
     try:
         with CheckpointEngine(CheckpointSpec(
                 directory=d, backend="fastpersist", volumes=vols,
-                fp=FastPersistConfig(strategy="replica",
-                                     topology=Topology(dp_degree=dp),
-                                     writer=writer_cfg,
-                                     checksum=False))) as eng:
+                fp=fp)) as eng:
             for i in range(iters):
                 t0 = time.perf_counter()
                 stats = eng.save(state, i).result()

@@ -46,7 +46,8 @@ import warnings
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field, replace
 from itertools import groupby
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
+from typing import (Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 import torch
@@ -121,38 +122,31 @@ class _GatedSegments:
                 done += take
 
 
+#: dirty-compare granularity in bytes (delta spans coalesce to
+#: multiples of this)
+DIRTY_BLOCK = 4096
+
+
 @dataclass
 class FastPersistConfig:
-    strategy: str = "auto"             # replica | socket | auto
-    writers_per_node: int = 2          # for 'socket'
+    strategy: str = "auto"             # replica | socket (2 a node) | auto
+    #: ``writer.checksum``: CRC32 per extent, verified on load; the CRCs
+    #: accumulate during the writers' fill phase (writer.py single-pass
+    #: integrity) — no second sweep over the stream happens in save()
     writer: WriterConfig = field(default_factory=WriterConfig)
     topology: Topology = field(default_factory=lambda: Topology(dp_degree=1))
-    single_file: bool = False          # one file + pwrite at offsets
-    fsync: bool = False
-    checksum: bool = True              # CRC32 per extent, verified on load
-    #: per-extent CRCs accumulate during the writers' fill phase
-    #: (writer.py single-pass integrity) — no second sweep over the
-    #: stream happens in save().
     quantize: bool = False             # int8 per-block (beyond-paper, lossy)
-    #: reuse one page-aligned host staging arena across saves (zero
-    #: allocation steady-state; see repro_torch.core.arena). Turn off to get
-    #: the old allocate-per-save serialize.
-    arena: bool = True
     #: incremental delta checkpoints (DESIGN.md §9): every Nth save is
     #: a full KEYFRAME through the normal path, and the saves in
     #: between write only the byte spans that changed since the
     #: previous save (layout-v3 delta generations chained by
-    #: generation nonce). 1 = every save is full (deltas off).
-    #: Requires the arena (it holds the previous image the dirty
-    #: compare runs against); incompatible with ``quantize`` and
-    #: ``single_file`` — those saves silently stay full.
+    #: generation nonce). 1 = every save is full (deltas off). The
+    #: arena holds the previous image the dirty compare runs against;
+    #: incompatible with ``quantize`` — those saves silently stay full.
     keyframe_every: int = 1
     #: int8-quantize delta spans before they hit disk (lossy; blockwise
     #: absmax scales, DESIGN.md §9) — keyframes stay full-precision
     delta_quantize: bool = False
-    #: dirty-compare granularity in bytes (delta spans coalesce to
-    #: multiples of this)
-    dirty_block: int = 4096
     #: striped delta generations (DESIGN.md §13): a delta whose PACKED
     #: payload is at least this many MiB is carved across the full
     #: writer/volume fan-out exactly like a keyframe (per-shard span
@@ -167,8 +161,8 @@ class FastPersistConfig:
     #: waits for the last tensor to leave the device, and with an async
     #: engine the WRITE overlaps the next train step (the step only
     #: waits for the snapshot, ``wait_snapshot``). 0 = the old
-    #: monolithic copy. Needs the arena; quantized saves stay
-    #: monolithic (the quantizer reads the whole stream).
+    #: monolithic copy. Quantized saves stay monolithic (the quantizer
+    #: reads the whole stream).
     snapshot_chunk_mb: int = 8
     #: device-side dirty masks (DESIGN.md §10): keep a packed previous
     #: image of every float record RESIDENT ON DEVICE and let the
@@ -203,8 +197,8 @@ class SaveStats:
     #: engine folds these into the global COMMIT marker
     shards: List[dict] = field(default_factory=list)
     #: True when serialization refilled a cached staging arena in place
-    #: (steady-state zero-allocation save); False on first save, shape
-    #: change, or with the arena disabled
+    #: (steady-state zero-allocation save); False on first save or shape
+    #: change
     arena_reused: bool = False
     #: this save's random generation nonce — the engine stamps it into
     #: the COMMIT marker; a later delta's chain validity hangs off it
@@ -250,11 +244,11 @@ class FastPersistCheckpointer:
         os.makedirs(directory, exist_ok=True)
         self._plan_cache = {}
         # persistent staging arena: reused across save() calls AND across
-        # overlapped (pipelined) saves — the engine/pipeline helper
-        # thread serializes saves, so the arena is never refilled while
-        # a previous save still reads it. Not safe for CONCURRENT save()
+        # overlapped (pipelined) saves — the engine's helper thread
+        # serializes saves, so the arena is never refilled while a
+        # previous save still reads it. Not safe for CONCURRENT save()
         # calls on one instance (use one checkpointer per caller).
-        self._arena = SerializeArena() if self.config.arena else None
+        self._arena = SerializeArena()
         # ---- delta-chain state (DESIGN.md §9) ----
         # A save may only chain off a base that is BOTH durably
         # committed (note_committed fired) and still resident in the
@@ -264,12 +258,6 @@ class FastPersistCheckpointer:
         #                                                   commit yet
         self._arena_gen: Optional[Tuple[int, str]] = None  # arena image
         self._since_keyframe = 0   # deltas committed since last keyframe
-        #: one-shot snapshot-complete callback (DESIGN.md §10): set by
-        #: the engine/pipeline BEFORE each save; fired (and cleared)
-        #: once the device→staging copy has fully landed — the earliest
-        #: point a donating train step may reuse the state's buffers,
-        #: while the write is still in flight
-        self.on_snapshot = None
         #: wall time of the last load's dequantization (quantized
         #: checkpoints only)
         self.last_dequantize_seconds = 0.0
@@ -288,7 +276,7 @@ class FastPersistCheckpointer:
         if key not in self._plan_cache:
             self._plan_cache[key] = make_plan(
                 total_bytes, self.config.topology, self.config.strategy,
-                self.config.writers_per_node, n_volumes=n_volumes,
+                n_volumes=n_volumes,
                 healthy_volumes=(list(healthy_volumes)
                                  if healthy_volumes is not None else None),
                 min_extent_bytes=min_extent_bytes)
@@ -298,10 +286,7 @@ class FastPersistCheckpointer:
         return os.path.join(self.directory, f"ckpt_{step:08d}")
 
     def _delta_enabled(self) -> bool:
-        return (self.config.keyframe_every > 1
-                and self._arena is not None
-                and not self.config.quantize
-                and not self.config.single_file)
+        return self.config.keyframe_every > 1 and not self.config.quantize
 
     def note_committed(self, step: int, marker: Optional[dict]):
         """Durability hook (DESIGN.md §9): the engine calls this AFTER
@@ -333,25 +318,24 @@ class FastPersistCheckpointer:
 
     def save(self, state, step: int, extras: Optional[dict] = None,
              directory: Optional[str] = None,
-             volume_dirs: Optional[Sequence[str]] = None) -> SaveStats:
+             volume_dirs: Optional[Sequence[str]] = None,
+             on_snapshot: Optional[Callable[[], None]] = None) -> SaveStats:
         """Persist ``state``. ``directory`` overrides the step directory —
         the CheckpointEngine points it at a staging dir so the commit
         protocol (COMMIT marker + atomic rename) stays engine-owned.
         ``volume_dirs`` (index-aligned with the plan's volume indices)
         stripes shard files across destination volumes; the manifest and
-        any volume-0-resident shards stay under ``directory``."""
+        any volume-0-resident shards stay under ``directory``.
+        ``on_snapshot`` is called once the device→staging copy has fully
+        landed (DESIGN.md §10) — the earliest point a train step may
+        update the state in place, while the write is still in flight."""
         t_ser = time.perf_counter()
         track = self._delta_enabled()
-        device_dirty = bool(self.config.device_dirty
-                            and self._arena is not None)
-        # chunked snapshot (DESIGN.md §10): arena-only, and quantized
-        # saves stay monolithic, as the reference's
+        # chunked snapshot (DESIGN.md §10): quantized saves stay
+        # monolithic, as the reference's
         chunk_bytes = 0
-        if (self.config.snapshot_chunk_mb > 0 and self._arena is not None
-                and not self.config.quantize):
+        if self.config.snapshot_chunk_mb > 0 and not self.config.quantize:
             chunk_bytes = int(self.config.snapshot_chunk_mb) << 20
-        notify = self.on_snapshot
-        self.on_snapshot = None
         quantize_s = 0.0
         dev_scales = {}
         progress = None
@@ -359,13 +343,13 @@ class FastPersistCheckpointer:
         if chunk_bytes:
             manifest, buffers, progress, fill = begin_snapshot(
                 state, self._arena, chunk_bytes, track_dirty=track,
-                dirty_block=self.config.dirty_block,
-                device_dirty=device_dirty)
+                dirty_block=DIRTY_BLOCK,
+                device_dirty=self.config.device_dirty)
 
             def _fill_job():
                 fill()                     # failures park in `progress`
-                if notify is not None and not progress.failed:
-                    notify()
+                if on_snapshot is not None and not progress.failed:
+                    on_snapshot()
 
             fill_thread = threading.Thread(target=_fill_job,
                                            name="fp-snapshot", daemon=True)
@@ -375,7 +359,8 @@ class FastPersistCheckpointer:
             # quantizes each float leaf on the card, enqueued on the
             # compute stream BEFORE the snapshot's ready event into new
             # storage, so the bytes are the values' at that event even
-            # when the trainer updates the state in place after notify()
+            # when the trainer updates the state in place after the
+            # on_snapshot call
             leaves, dtypes, quantize_s = quant.quantize_leaves(
                 flatten(state))
             manifest, buffers = serialize_leaves(
@@ -387,17 +372,16 @@ class FastPersistCheckpointer:
             # the arena holds their bytes now: free the card's int8
             # values and scales before the trainer runs on
             del leaves
-            if notify is not None:
-                notify()
+            if on_snapshot is not None:
+                on_snapshot()
         else:
             manifest, buffers = serialize(
                 state, arena=self._arena, track_dirty=track,
-                dirty_block=self.config.dirty_block,
-                device_dirty=device_dirty)
-            if notify is not None:
-                notify()
-        arena_reused = bool(self._arena and self._arena.last_reused)
-        stream_bytes = manifest.total_bytes
+                dirty_block=DIRTY_BLOCK,
+                device_dirty=self.config.device_dirty)
+            if on_snapshot is not None:
+                on_snapshot()
+        arena_reused = self._arena.last_reused
         manifest.extras = extras or {}
         if self.config.quantize:
             manifest.extras = {**manifest.extras, "quantized": True}
@@ -425,10 +409,8 @@ class FastPersistCheckpointer:
         ser_s = time.perf_counter() - t_ser
 
         d = directory if directory is not None else self.path(step)
-        n_volumes = (len(volume_dirs)
-                     if volume_dirs and not self.config.single_file else 1)
-        dirs = (list(volume_dirs) if volume_dirs
-                and not self.config.single_file else [d])
+        n_volumes = len(volume_dirs) if volume_dirs else 1
+        dirs = list(volume_dirs) if volume_dirs else [d]
         # striped delta generations (DESIGN.md §13): the binary cutoff —
         # a packed payload clearing delta_stripe_min_mb is carved across
         # the full writer/volume fan-out exactly like a keyframe; below
@@ -454,7 +436,7 @@ class FastPersistCheckpointer:
             # one entry per distinct packed size
             return delta_stripe_plan(
                 view.total, self.config.topology, self.config.strategy,
-                self.config.writers_per_node, n_volumes=n_vol,
+                n_volumes=n_vol,
                 healthy_volumes=(list(healthy) if healthy is not None
                                  else None),
                 stripe_min_bytes=stripe_min)
@@ -462,7 +444,7 @@ class FastPersistCheckpointer:
         if n_volumes > 1:
             n_writers = len(select_writers(
                 self.config.topology, self.config.strategy,
-                self.config.writers_per_node, view.total))
+                total_bytes=view.total))
             healthy, deg = probe_volumes(dirs, view.total, create=True,
                                          n_shards=n_writers)
             probe_degraded = tuple(deg)
@@ -494,8 +476,6 @@ class FastPersistCheckpointer:
         # phase (single-pass integrity), so the stream is traversed
         # exactly once end to end.
         wcfg = self.config.writer
-        if wcfg.checksum != self.config.checksum:
-            wcfg = replace(wcfg, checksum=self.config.checksum)
 
         # chunk-granular handoff: writers consume gated segments that
         # block until the snapshot watermark covers them (delta saves
@@ -508,10 +488,6 @@ class FastPersistCheckpointer:
                                       gate)
             else:
                 segs = view.slices(extent.offset, extent.length)
-            if self.config.single_file:
-                return write_stream(os.path.join(d, "checkpoint.bin"),
-                                    segs, extent.length, wcfg,
-                                    file_offset=extent.offset)
             return write_stream(
                 os.path.join(dirs[extent.volume],
                              self._shard_file(extent.shard_index)),
@@ -555,11 +531,10 @@ class FastPersistCheckpointer:
                 meta["delta"] = dplan.to_meta()
                 meta["delta"]["striped"] = not delta_single
             extents_meta = [vars(e).copy() for e in plan.extents]
-            if self.config.checksum:
-                # fill-phase CRCs from the writers — NOT a second sweep
-                for em, ws in zip(extents_meta, per_writer):
-                    if ws.crc32 is not None:
-                        em["crc32"] = ws.crc32
+            # fill-phase CRCs from the writers — NOT a second sweep
+            for em, ws in zip(extents_meta, per_writer):
+                if ws.crc32 is not None:
+                    em["crc32"] = ws.crc32
             meta["plan"] = {"strategy": plan.strategy, "extents": extents_meta,
                             "n_volumes": plan.n_volumes}
             degraded = tuple(sorted({*plan.degraded, *probe_degraded}))
@@ -577,29 +552,19 @@ class FastPersistCheckpointer:
                 meta["index"] = tensor_spans(manifest.records, plan.extents)
             with open(mpath, "w") as f:
                 json.dump(meta, f)
-            if self.config.fsync:
-                fd = os.open(d, os.O_RDONLY)
-                os.fsync(fd)
-                os.close(fd)
         shard_meta = []
-        if self.config.single_file:
-            shard_meta.append({"name": "checkpoint.bin", "volume": 0,
-                               "size": view.total})
-        else:
-            for e, em in zip(plan.extents, extents_meta):
-                sh = {"name": self._shard_file(e.shard_index),
-                      "volume": e.volume, "size": e.length}
-                if "crc32" in em:
-                    sh["crc32"] = em["crc32"]
-                shard_meta.append(sh)
+        for e, em in zip(plan.extents, extents_meta):
+            sh = {"name": self._shard_file(e.shard_index),
+                  "volume": e.volume, "size": e.length}
+            if "crc32" in em:
+                sh["crc32"] = em["crc32"]
+            shard_meta.append(sh)
         stats = SaveStats(view.total, wall, ser_s, per_writer,
                           len(plan.extents), shards=shard_meta,
                           arena_reused=arena_reused, generation=gen,
                           delta=dplan.to_meta() if dplan is not None
                           else None,
-                          d2h_bytes=(self._arena.last_d2h_bytes
-                                     if self._arena is not None
-                                     else stream_bytes),
+                          d2h_bytes=self._arena.last_d2h_bytes,
                           snapshot_seconds=(progress.seconds
                                             if progress is not None
                                             else ser_s),
@@ -664,10 +629,6 @@ class FastPersistCheckpointer:
                    volume_roots: Optional[Sequence[str]] = None) -> bytes:
         """One rank's load step (before the allgather)."""
         d = directory if directory is not None else self.path(step)
-        if self.config.single_file:
-            with open(os.path.join(d, "checkpoint.bin"), "rb") as f:
-                f.seek(extent["offset"])
-                return f.read(extent["length"])
         sd = self._shard_dir(d, extent, marker, volume_roots)
         with open(os.path.join(sd, self._shard_file(shard_index)),
                   "rb") as f:
@@ -857,8 +818,7 @@ class FastPersistCheckpointer:
             raise layout.TornCheckpointError(
                 f"{d}: delta stream is {manifest.total_bytes} bytes but "
                 f"keyframe step {kstep} holds {total} — chain broken")
-        dest = (self._arena.read_buffer(total) if self._arena is not None
-                else memoryview(bytearray(total)))
+        dest = self._arena.read_buffer(total)
         if read_plan is not None:
             self._fill_parallel(kplan, kindex, read_plan, verify, kd,
                                 kmarker, volume_roots, dest)
@@ -890,17 +850,10 @@ class FastPersistCheckpointer:
                    spans: List[ReadSpan]
                    ) -> Tuple[str, List[Tuple[int, int, int]]]:
         """(path, [(file_offset, dest_offset≡stream_offset, length)])
-        for one shard's spans; single-file checkpoints offset into the
-        one stream-ordered file."""
-        if self.config.single_file:
-            path = os.path.join(d, "checkpoint.bin")
-            base = int(extent["offset"])
-        else:
-            sd = self._shard_dir(d, extent, marker, volume_roots)
-            path = os.path.join(sd,
-                                self._shard_file(int(extent["shard_index"])))
-            base = 0
-        return path, [(base + s.shard_offset, s.stream_offset, s.length)
+        for one shard's spans."""
+        sd = self._shard_dir(d, extent, marker, volume_roots)
+        path = os.path.join(sd, self._shard_file(int(extent["shard_index"])))
+        return path, [(s.shard_offset, s.stream_offset, s.length)
                       for s in spans]
 
     def _read_rank_spans(self, rank: int, rp: ReadPlan, by_shard: Dict,
@@ -981,9 +934,7 @@ class FastPersistCheckpointer:
                        d: str, marker, volume_roots, device=None):
         """N local reader workers → one shared arena buffer, combined-CRC
         verification, zero-copy deserialize."""
-        total = manifest.total_bytes
-        dest = (self._arena.read_buffer(total) if self._arena is not None
-                else memoryview(bytearray(total)))
+        dest = self._arena.read_buffer(manifest.total_bytes)
         self._fill_parallel(plan, index, read_plan, verify, d, marker,
                             volume_roots, dest)
         return self._materialize(manifest, dest, like, device)
@@ -1084,13 +1035,9 @@ class FastPersistCheckpointer:
         per_path: List[Tuple[str, Tuple[int, int, int]]] = []
         pos = 0
         for shard_index, off, length in index[name]:
-            e = by_shard[shard_index]
-            if self.config.single_file:
-                path = os.path.join(d, "checkpoint.bin")
-                off = e["offset"] + off       # file holds the full stream
-            else:
-                sd = self._shard_dir(d, e, marker, volume_roots)
-                path = os.path.join(sd, self._shard_file(shard_index))
+            sd = self._shard_dir(d, by_shard[shard_index], marker,
+                                 volume_roots)
+            path = os.path.join(sd, self._shard_file(shard_index))
             per_path.append((path, (off, pos, length)))
             pos += length
         if pos != rec.nbytes:

@@ -10,8 +10,9 @@ checkpointing mode of the port.
     state, manifest = engine.load(like=state, device="cuda")
 
 A copy of ``repro.core.engine``: the same backends under the same
-registry keys (the COMMIT marker records the key, so either package
-reads the other's checkpoints), the same crash-atomic commit protocol
+keys (the COMMIT marker records the key, so either package reads the
+other's checkpoints) in one fixed table, :data:`BACKENDS`; the same
+crash-atomic commit protocol
 (``ckpt_<step>.tmp/`` + manifest-checksummed ``COMMIT`` + atomic rename,
 :mod:`repro_torch.core.layout`), the same snapshot-granular sync point,
 and the same durability tiers: the ``fastpersist-tiered[-pipelined]``
@@ -23,14 +24,14 @@ serve from them (§12). Restored tensors are placed with
 """
 from __future__ import annotations
 
-import inspect
 import os
 import queue
 import shutil
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 from repro_torch import spans
 from repro_torch.core import layout
@@ -42,17 +43,19 @@ from repro_torch.tree import flatten, unflatten
 
 
 # ===================================================================== spec
+#: async backends: saves in flight at once (each holds a snapshot)
+MAX_OUTSTANDING = 1
+#: loads verify the COMMIT deeply and the payload CRCs unless told not to
+VERIFY_ON_LOAD = True
+
+
 @dataclass
 class CheckpointSpec:
     """Everything the engine needs; the single configuration surface."""
     directory: str
-    backend: str = "fastpersist"
+    backend: str = "fastpersist"    # a key of BACKENDS
     fp: FastPersistConfig = field(default_factory=FastPersistConfig)
-    baseline_buffer_size: int = 64 * 1024
-    max_outstanding: int = 1        # async backends: in-flight save bound
     fsync_commit: bool = True       # fsync COMMIT + parent dir on publish
-    verify_on_load: bool = True
-    clean_stale_staging: bool = True    # sweep crashed writers' .tmp dirs
     #: destination volume roots for sharded payloads (the paper's
     #: per-node SSDs; here: directory roots, e.g. one per mounted disk).
     #: None/empty → shards live in ``directory`` (single-volume layout).
@@ -64,8 +67,6 @@ class CheckpointSpec:
     #: :class:`repro_torch.core.upload.ObjectStore` instance. Also enables
     #: ``engine.load(tier="remote")`` hydration for any backend.
     upload_store: Optional[object] = None
-    #: per-object upload retry budget for the tiered backends
-    upload_max_retries: int = 2
     #: peer-replication tier (DESIGN.md §11): replication targets for
     #: ANY backend — ``[name=]store[@failure_domain]`` specs,
     #: :class:`repro_torch.core.peer.PeerConfig` instances, or store objects.
@@ -80,9 +81,6 @@ class CheckpointSpec:
     #: this WRITER's failure domain — placement avoids it whenever any
     #: other usable domain exists
     failure_domain: Optional[str] = None
-    #: per-attempt wall-clock deadline on every peer operation (seconds;
-    #: None = unbounded) — a hung peer must never wedge the replicator
-    peer_op_timeout: Optional[float] = 30.0
     #: concurrent range-fetch workers for remote/peer hydration
     #: (DESIGN.md §12) — the read-side mirror of the parallel restore
     #: width; 1 = serial object-by-object download
@@ -134,8 +132,8 @@ class SaveHandle:
         self._done.set()
 
     def _mark_snapshot(self):
-        # backend callback (bind_snapshot): the device→staging copy has
-        # fully landed; the write may still be in flight
+        # the payload's on_snapshot callback: the device→staging copy
+        # has fully landed; the write may still be in flight
         self._snapshotted.set()
 
     def done(self) -> bool:
@@ -285,183 +283,60 @@ class SaveHandle:
 
 
 # ================================================================ backends
-class CheckpointBackend:
-    """Payload strategy: HOW bytes reach a directory. The engine owns
-    WHERE (staging) and WHEN it becomes visible (commit protocol)."""
-
-    #: async backends persist on a helper thread; the engine returns a
-    #: pending SaveHandle and completes it off the critical path.
-    async_save = False
+class _FastPersistPayload:
+    """Paper §4: parallel aligned NVMe writers, shards striped across the
+    spec's volumes."""
 
     def __init__(self, spec: CheckpointSpec):
-        self.spec = spec
+        self.ckpt = FastPersistCheckpointer(spec.directory, spec.fp)
 
-    def write_payload(self, state, step: int, extras: Optional[dict],
-                      directory: str) -> SaveStats:
-        raise NotImplementedError
+    def write(self, state, step, extras, directory, volume_dirs,
+              on_snapshot) -> SaveStats:
+        return self.ckpt.save(state, step, extras, directory=directory,
+                              volume_dirs=volume_dirs,
+                              on_snapshot=on_snapshot)
 
-    def write_payload_sharded(self, state, step: int,
-                              extras: Optional[dict], directory: str,
-                              volume_dirs: List[str]) -> SaveStats:
-        """Multi-volume write hook: ``directory`` is the primary staging
-        dir (manifest + COMMIT home), ``volume_dirs[v]`` the staging dir
-        for volume ``v`` (may alias ``directory``). Backends that are
-        volume-agnostic inherit this default and keep working."""
-        return self.write_payload(state, step, extras, directory)
+    def read(self, directory, step, like, verify, marker, volume_roots,
+             parallel, device):
+        return self.ckpt.load(step, like=like, verify=verify,
+                              directory=directory, marker=marker,
+                              volume_roots=volume_roots, read_plan=parallel,
+                              device=device)
 
-    def read_payload(self, directory: str, step: int, like=None,
-                     verify: bool = True) -> Tuple[object, object]:
-        raise NotImplementedError
+    def read_owned(self, directory, step, rank, n_readers, ownership,
+                   verify, marker, volume_roots):
+        return self.ckpt.read_owned(step, rank, n_readers,
+                                    ownership=ownership, verify=verify,
+                                    directory=directory, marker=marker,
+                                    volume_roots=volume_roots)
 
-    def read_payload_sharded(self, directory: str, step: int, like=None,
-                             verify: bool = True, marker=None,
-                             volume_roots=None, parallel=None,
-                             device=None) -> Tuple[object, object]:
-        """Multi-volume read hook; the default ignores the shard context,
-        the parallel-restore request and the target device (single-dir
-        backends never need them; the engine places the result)."""
-        return self.read_payload(directory, step, like=like, verify=verify)
+    def load_tensor(self, directory, step, name, marker, volume_roots):
+        return self.ckpt.load_tensor(step, name, directory=directory,
+                                     marker=marker, volume_roots=volume_roots)
 
     def invalidate_arena(self):
-        """Drop any cached serialize-arena layout (the trainer calls this
-        when the state object was replaced). Default: nothing cached."""
+        self.ckpt._arena.invalidate()
 
-    def bind_snapshot(self, callback):
-        """Install the one-shot snapshot-complete callback for the NEXT
-        save (DESIGN.md §10): fire it once the device→staging copy has
-        fully landed, while the write may still be in flight. Backends
-        without a distinct snapshot stage ignore it — the engine then
-        treats snapshot-done as save-done."""
-
-    def after_commit(self, step: int, directory: str, marker: dict,
-                     stats: SaveStats):
-        """Post-publish hook, called by the engine AFTER the local
-        crash-atomic rename with the published ``directory`` and its
-        COMMIT ``marker``. Tiered backends enqueue the background
-        upload here and return the ``UploadTicket`` (attached to the
-        SaveHandle); the default returns None — no second tier."""
-        return None
-
-    def close(self):
-        pass
-
-
-class FastPersistBackend(CheckpointBackend):
-    """Paper §4: parallel aligned NVMe writers, synchronous commit,
-    shards striped across the spec's volumes."""
-
-    def __init__(self, spec: CheckpointSpec):
-        super().__init__(spec)
-        self._inner = FastPersistCheckpointer(spec.directory, spec.fp)
-
-    def write_payload(self, state, step, extras, directory) -> SaveStats:
-        return self._inner.save(state, step, extras, directory=directory)
-
-    def write_payload_sharded(self, state, step, extras, directory,
-                              volume_dirs) -> SaveStats:
-        return self._inner.save(state, step, extras, directory=directory,
-                                volume_dirs=volume_dirs)
-
-    def read_payload(self, directory, step, like=None, verify=True):
-        return self._inner.load(step, like=like, verify=verify,
-                                directory=directory)
-
-    def read_payload_sharded(self, directory, step, like=None, verify=True,
-                             marker=None, volume_roots=None,
-                             parallel=None, device=None):
-        return self._inner.load(step, like=like, verify=verify,
-                                directory=directory, marker=marker,
-                                volume_roots=volume_roots,
-                                read_plan=parallel, device=device)
-
-    def read_owned(self, directory, step, rank, n_readers, ownership=None,
-                   verify=True, marker=None, volume_roots=None):
-        return self._inner.read_owned(step, rank, n_readers,
-                                      ownership=ownership, verify=verify,
-                                      directory=directory, marker=marker,
-                                      volume_roots=volume_roots)
-
-    def load_tensor(self, directory, step, name, marker=None,
-                    volume_roots=None):
-        return self._inner.load_tensor(step, name, directory=directory,
-                                       marker=marker,
-                                       volume_roots=volume_roots)
-
-    def invalidate_arena(self):
-        arena = getattr(self._inner, "_arena", None)
-        if arena is not None:
-            arena.invalidate()
-
-    def bind_snapshot(self, callback):
-        # the checkpointer consumes (and clears) this at save start, so
-        # a binding never leaks into a later save
-        self._inner.on_snapshot = callback
-
-    def after_commit(self, step, directory, marker, stats):
+    def note_committed(self, step, marker):
         # delta chain bookkeeping (DESIGN.md §9): a save may only serve
         # as a delta base once its COMMIT actually published — telling
         # the checkpointer here closes the crash window where a delta
         # would reference a base that never became visible
-        self._inner.note_committed(step, marker)
-        return None
+        self.ckpt.note_committed(step, marker)
 
 
-class PipelinedFastPersistBackend(FastPersistBackend):
-    """Paper §4.3: same write path, persisted by the engine's helper
-    thread so it overlaps the next iteration's forward/backward."""
-    async_save = True
-
-
-class TieredFastPersistBackend(FastPersistBackend):
-    """Tiered durability (DESIGN.md §8): the fastpersist local write
-    path, plus an :class:`repro_torch.core.upload.UploadManager` background
-    worker that streams each committed generation to the spec's
-    ``upload_store`` AFTER the local COMMIT rename — local NVMe for
-    speed, the object tier for durability, hot path untouched."""
+class _BaselinePayload:
+    """torch.save()-style single buffered writer (paper §3.1); it writes
+    into the primary staging dir only and has no snapshot stage of its
+    own (its handle's snapshot is done when the save is)."""
 
     def __init__(self, spec: CheckpointSpec):
-        super().__init__(spec)
-        if spec.upload_store is None:
-            raise ValueError(
-                f"backend {spec.backend!r} needs CheckpointSpec."
-                f"upload_store (a path, file:// / registered scheme:// "
-                f"URL, or an ObjectStore instance)")
-        from repro_torch.core.upload import UploadManager
-        roots = [os.path.abspath(v)
-                 for v in (spec.volumes or [spec.directory])]
-        self.uploader = UploadManager(spec.upload_store,
-                                      volume_roots=roots,
-                                      max_retries=spec.upload_max_retries)
+        self.ckpt = BaselineCheckpointer(spec.directory)
 
-    def after_commit(self, step, directory, marker, stats):
-        super().after_commit(step, directory, marker, stats)
-        return self.uploader.enqueue(step, directory, marker)
-
-    def close(self):
-        try:
-            self.uploader.close(drain=True)
-        finally:
-            super().close()
-
-
-class TieredPipelinedFastPersistBackend(TieredFastPersistBackend):
-    """Tiered durability on top of the §4.3 pipelined local write: the
-    engine's helper thread persists+commits locally off the critical
-    path, then hands the sealed generation to the upload worker."""
-    async_save = True
-
-
-class BaselineBackend(CheckpointBackend):
-    """torch.save()-style single buffered writer (paper §3.1)."""
-
-    def __init__(self, spec: CheckpointSpec):
-        super().__init__(spec)
-        self._inner = BaselineCheckpointer(spec.directory,
-                                           spec.baseline_buffer_size)
-
-    def write_payload(self, state, step, extras, directory) -> SaveStats:
+    def write(self, state, step, extras, directory, volume_dirs,
+              on_snapshot) -> SaveStats:
         t0 = time.perf_counter()
-        bs = self._inner.save(state, step, extras, directory=directory)
+        bs = self.ckpt.save(state, step, extras, directory=directory)
         # lift into the unified stats shape: one logical writer, and the
         # baseline interleaves serialize+write so it is all "persist" time
         return SaveStats(total_bytes=bs.bytes_written, seconds=bs.seconds,
@@ -470,62 +345,49 @@ class BaselineBackend(CheckpointBackend):
                          per_writer=[], n_writers=1,
                          arena_reused=bs.arena_reused)
 
-    def read_payload(self, directory, step, like=None, verify=True):
-        return self._inner.load(step, like=like, directory=directory)
+    def read(self, directory, step, like, verify, marker, volume_roots,
+             parallel, device):
+        # one file, read whole: the shard context, the parallel request
+        # and the device are not needed (the engine places the result)
+        return self.ckpt.load(step, like=like, directory=directory)
 
     def invalidate_arena(self):
-        arena = getattr(self._inner, "_arena", None)
-        if arena is not None:
-            arena.invalidate()
+        self.ckpt._arena.invalidate()
+
+    def note_committed(self, step, marker):
+        pass
 
 
-_REGISTRY: Dict[str, Callable[[CheckpointSpec], CheckpointBackend]] = {}
+class Backend(NamedTuple):
+    """One row of :data:`BACKENDS`."""
+    payload: type        # how bytes reach the staging dir
+    async_save: bool     # persisted on the engine's helper thread (§4.3)
+    uploads: bool        # each commit streams to ``spec.upload_store`` (§8)
 
 
-def register_backend(name: str,
-                     factory: Callable[[CheckpointSpec], CheckpointBackend],
-                     overwrite: bool = False):
-    """Register a checkpoint backend under a string key. Third-party
-    strategies plug in here and immediately work with Trainer,
-    RetentionManager, benchmarks, and the CLI.
-
-    Args:
-        name: registry key; what ``CheckpointSpec.backend``, the
-            launcher's ``--backend``, and COMMIT markers refer to.
-        factory: called with the engine's :class:`CheckpointSpec`,
-            returns a :class:`CheckpointBackend`.
-        overwrite: replace an existing registration instead of raising
-            ``ValueError``.
-    """
-    if name in _REGISTRY and not overwrite:
-        raise ValueError(f"backend {name!r} already registered "
-                         f"(pass overwrite=True to replace)")
-    _REGISTRY[name] = factory
-
-
-def unregister_backend(name: str):
-    _REGISTRY.pop(name, None)
+#: The engine's backends by key — the keys the COMMIT marker records,
+#: the reference's. The pipelined rows persist on a helper thread so the
+#: write overlaps the next iteration; the tiered rows also upload every
+#: committed generation to an object store, AFTER the local COMMIT.
+BACKENDS: Dict[str, Backend] = {
+    "baseline": Backend(_BaselinePayload, False, False),
+    "fastpersist": Backend(_FastPersistPayload, False, False),
+    "fastpersist-pipelined": Backend(_FastPersistPayload, True, False),
+    "fastpersist-tiered": Backend(_FastPersistPayload, False, True),
+    "fastpersist-tiered-pipelined": Backend(_FastPersistPayload, True, True),
+}
 
 
 def available_backends() -> Tuple[str, ...]:
-    return tuple(sorted(_REGISTRY))
+    return tuple(sorted(BACKENDS))
 
 
-def get_backend_factory(name: str
-                        ) -> Callable[[CheckpointSpec], CheckpointBackend]:
+def _backend(name: str) -> Backend:
     try:
-        return _REGISTRY[name]
+        return BACKENDS[name]
     except KeyError:
         raise KeyError(f"unknown checkpoint backend {name!r}; "
                        f"available: {', '.join(available_backends())}")
-
-
-register_backend("baseline", BaselineBackend)
-register_backend("fastpersist", FastPersistBackend)
-register_backend("fastpersist-pipelined", PipelinedFastPersistBackend)
-register_backend("fastpersist-tiered", TieredFastPersistBackend)
-register_backend("fastpersist-tiered-pipelined",
-                 TieredPipelinedFastPersistBackend)
 
 
 # ================================================================== worker
@@ -545,10 +407,14 @@ class _SaveWorker:
             if item is None:
                 return
             job, handle = item
+            del item
             try:
                 handle._finish(stats=job())
             except BaseException as e:
                 handle._finish(exc=e)
+            # the job holds the saved state: drop it now, not when the
+            # next job (or close) rebinds these names
+            del job, handle
 
     def submit(self, job: Callable[[], SaveStats], handle: SaveHandle):
         self._q.put((job, handle))
@@ -594,11 +460,27 @@ class CheckpointEngine:
                 warnings.warn(f"checkpoint volume root {root} is "
                               f"unavailable ({e}); saves will stripe "
                               f"around it", stacklevel=2)
-        if spec.clean_stale_staging:
-            layout.clean_stale_multi(spec.directory, self.volume_roots())
-        self._backend = get_backend_factory(spec.backend)(spec)
-        self._read_backends: Dict[str, CheckpointBackend] = {
-            spec.backend: self._backend}
+        # sweep crashed writers' .tmp dirs
+        layout.clean_stale_multi(spec.directory, self.volume_roots())
+        self._row = _backend(spec.backend)
+        self._payload = self._row.payload(spec)
+        #: payload readers by class: a checkpoint is read by the payload
+        #: of the backend its COMMIT names (every fastpersist key shares
+        #: one format, so one reader)
+        self._readers = {type(self._payload): self._payload}
+        # second durability tier (DESIGN.md §8): the engine owns the
+        # uploader of a tiered backend and enqueues each sealed
+        # generation after the local commit, beside the peer replicator
+        self._uploader = None
+        if self._row.uploads:
+            if spec.upload_store is None:
+                raise ValueError(
+                    f"backend {spec.backend!r} needs CheckpointSpec."
+                    f"upload_store (a path, file:// / registered scheme:// "
+                    f"URL, or an ObjectStore instance)")
+            from repro_torch.core.upload import UploadManager
+            self._uploader = UploadManager(spec.upload_store,
+                                           volume_roots=self.volume_roots())
         self._remote_store = None       # lazy, for non-tiered backends
         self._serve_cache = None        # lazy, DESIGN.md §12 read cache
         #: :class:`repro_torch.core.upload.HydrateStats` of the most recent
@@ -609,7 +491,7 @@ class CheckpointEngine:
         self.last_serve: List[object] = []
         # peer-replication tier (DESIGN.md §11): backend-agnostic — the
         # ENGINE owns the replicator and enqueues at the same
-        # after-local-commit point the tiered backends upload from
+        # after-local-commit point as the upload
         self._replicator = None
         if spec.peers:
             from repro_torch.core.peer import PeerReplicator
@@ -617,8 +499,7 @@ class CheckpointEngine:
                 spec.peers,
                 replication_factor=spec.replication_factor,
                 failure_domain=spec.failure_domain,
-                volume_roots=self.volume_roots(),
-                op_timeout=spec.peer_op_timeout)
+                volume_roots=self.volume_roots())
         self._worker: Optional[_SaveWorker] = None   # started lazily
         self._inflight: List[SaveHandle] = []
         self._deferred_exc: Optional[BaseException] = None
@@ -633,7 +514,7 @@ class CheckpointEngine:
 
     @property
     def async_save(self) -> bool:
-        return self._backend.async_save
+        return self._row.async_save
 
     def volume_roots(self) -> List[str]:
         """Absolute destination volume roots; index == Extent.volume."""
@@ -652,7 +533,7 @@ class CheckpointEngine:
                                            handle)
         self.stats.submitted += 1
         with spans.span("engine.save"):
-            if self._backend.async_save:
+            if self._row.async_save:
                 if self._worker is None:
                     self._worker = _SaveWorker()
                 self._throttle()
@@ -703,13 +584,13 @@ class CheckpointEngine:
         while True:
             with self._lock:
                 pending = self._prune_inflight_locked()
-                if len(pending) < self.spec.max_outstanding:
+                if len(pending) < MAX_OUTSTANDING:
                     break
             pending[0]._done.wait()
         self.stats.stall_seconds += time.perf_counter() - t0
 
     def _save_committed(self, state, step: int, extras: Optional[dict],
-                        handle: Optional[SaveHandle] = None) -> SaveStats:
+                        handle: SaveHandle) -> SaveStats:
         """The crash-atomic sharded save: stage on every volume → publish
         secondary shard dirs (fresh generation names, invisible until
         referenced) → seal (global COMMIT) → publish the primary
@@ -760,19 +641,17 @@ class CheckpointEngine:
                 if os.path.exists(d):
                     shutil.rmtree(d)
                 os.makedirs(d)
-            # snapshot-granular sync (DESIGN.md §10): tell the backend to
-            # flip this handle's snapshot event as soon as the device→
-            # staging copy lands — binding happens here (on the serial save
-            # path) so queued saves never clobber each other's callback
-            if handle is not None:
-                self._backend.bind_snapshot(handle._mark_snapshot)
         published = False
         try:
-            stats = self._backend.write_payload_sharded(
-                state, step, extras, staging, volume_staging)
+            # snapshot-granular sync (DESIGN.md §10): the payload flips
+            # this handle's snapshot event as soon as the device→staging
+            # copy lands, while the write may still be in flight
+            stats = self._payload.write(state, step, extras, staging,
+                                        volume_staging,
+                                        on_snapshot=handle._mark_snapshot)
             with spans.timed("commit.fsync") as fsync:
-                # a volume-agnostic backend (baseline, single_file)
-                # leaves its secondary staging dirs empty: drop them
+                # a volume-agnostic payload (baseline) leaves its
+                # secondary staging dirs empty: drop them
                 # instead of publishing and commit-recording empty
                 # generation dirs
                 live = []
@@ -844,22 +723,21 @@ class CheckpointEngine:
         self.stats.bytes_written += stats.total_bytes
         if getattr(stats, "arena_reused", False):
             self.stats.arena_reuses += 1
+        self._payload.note_committed(step, marker)
         # second durability tier (DESIGN.md §8): the local commit point
-        # is behind us — hand the sealed generation to the backend's
-        # background uploader; the ticket lands on the handle BEFORE it
-        # finishes, so wait() → wait_uploaded() never races
-        ticket = self._backend.after_commit(step, final, marker, stats)
-        if ticket is not None:
+        # is behind us — hand the sealed generation to the background
+        # uploader; the ticket lands on the handle BEFORE it finishes,
+        # so wait() → wait_uploaded() never races
+        if self._uploader is not None:
+            handle._attach_upload(self._uploader.enqueue(step, final,
+                                                         marker))
             self.stats.uploads_enqueued += 1
-            if handle is not None:
-                handle._attach_upload(ticket)
         # peer tier (DESIGN.md §11): same hook point, same pre-finish
         # attach discipline — wait() → wait_replicated() never races
         if self._replicator is not None:
-            rticket = self._replicator.enqueue(step, final, marker)
+            handle._attach_replication(
+                self._replicator.enqueue(step, final, marker))
             self.stats.replications_enqueued += 1
-            if handle is not None:
-                handle._attach_replication(rticket)
         return stats
 
     # ---------------------------------------------------------------- sync
@@ -917,13 +795,13 @@ class CheckpointEngine:
 
     def close(self):
         """Drain outstanding saves, stop the helper thread, and close
-        the backend (which drains its upload tier) and the peer
-        replicator."""
+        the upload tier (draining it) and the peer replicator."""
         try:
             self.drain()
         finally:
             try:
-                self._backend.close()
+                if self._uploader is not None:
+                    self._uploader.close(drain=True)
             finally:
                 if self._replicator is not None:
                     self._replicator.close()
@@ -1012,7 +890,7 @@ class CheckpointEngine:
         if owned_only:
             return self.load_owned(reader_rank, n_readers, step=step,
                                    ownership=ownership, verify=verify)
-        verify = self.spec.verify_on_load if verify is None else verify
+        verify = VERIFY_ON_LOAD if verify is None else verify
         preverified = False
         if step is None:
             step = self.latest_step()       # already deep-verifies
@@ -1028,17 +906,9 @@ class CheckpointEngine:
             marker = layout.verify_commit(d, deep=verify,
                                           volume_roots=self.volume_roots())
         reader = self._reader_for(marker.get("backend", self.spec.backend))
-        # only pass the parallel kwarg when actually requested, and the
-        # device only to a backend that takes it: out-of-tree backends
-        # registered against the pre-restore-pipeline signature must
-        # keep working for plain loads (their result is moved below)
-        kw = {} if parallel is None else {"parallel": parallel}
-        if device is not None and _takes(reader.read_payload_sharded,
-                                         "device"):
-            kw["device"] = device       # a quantized payload dequantizes there
-        state, manifest = reader.read_payload_sharded(
-            d, step, like=like, verify=verify, marker=marker,
-            volume_roots=self.volume_roots(), **kw)
+        # a quantized payload dequantizes on ``device``
+        state, manifest = reader.read(d, step, like, verify, marker,
+                                      self.volume_roots(), parallel, device)
         if device is not None:
             state = _to_device(state, device)
         return state, manifest
@@ -1055,7 +925,7 @@ class CheckpointEngine:
         each rank runs this, then one allgather
         (``checkpointer.allgather_owned`` is the single-host stand-in)
         rebuilds the stream."""
-        verify = self.spec.verify_on_load if verify is None else verify
+        verify = VERIFY_ON_LOAD if verify is None else verify
         if n_readers is None:
             n_readers = max(1, self.spec.fp.topology.dp_degree)
         if step is None:
@@ -1071,19 +941,15 @@ class CheckpointEngine:
             raise NotImplementedError(
                 f"backend {marker.get('backend')!r} has no owned-span "
                 f"read support")
-        return reader.read_owned(d, step, reader_rank, n_readers,
-                                 ownership=ownership, verify=verify,
-                                 marker=marker,
-                                 volume_roots=self.volume_roots())
+        return reader.read_owned(d, step, reader_rank, n_readers, ownership,
+                                 verify, marker, self.volume_roots())
 
     def invalidate_arena(self):
         """Drop the serialize arena's cached layout when the state object
         was replaced (restore, re-init), instead of relying on the
         structure key alone."""
-        self._backend.invalidate_arena()
-        for b in self._read_backends.values():
-            if b is not self._backend:
-                b.invalidate_arena()
+        for reader in self._readers.values():
+            reader.invalidate_arena()
 
     def load_tensor(self, name: str, step: Optional[int] = None,
                     tier: str = "local", device=None):
@@ -1154,8 +1020,7 @@ class CheckpointEngine:
             raise NotImplementedError(
                 f"backend {marker.get('backend')!r} has no partial-read "
                 f"support")
-        out = reader.load_tensor(d, step, name, marker=marker,
-                                 volume_roots=self.volume_roots())
+        out = reader.load_tensor(d, step, name, marker, self.volume_roots())
         return out if device is None else out.to(device)
 
     # ---------------------------------------------------------- tiered
@@ -1163,7 +1028,7 @@ class CheckpointEngine:
     def upload_manager(self):
         """The tiered backend's :class:`repro_torch.core.upload.UploadManager`
         (None for backends without an upload tier)."""
-        return getattr(self._backend, "uploader", None)
+        return self._uploader
 
     @property
     def remote_store(self):
@@ -1238,7 +1103,7 @@ class CheckpointEngine:
         self.last_hydrate_stats = HydrateStats()
         return hydrate(store, self.spec.directory, step=step,
                        io_config=self.spec.fp.writer,
-                       verify=self.spec.verify_on_load,
+                       verify=VERIFY_ON_LOAD,
                        readers=(self.spec.hydrate_readers
                                 if readers is None else readers),
                        cache=self.serve_cache,
@@ -1289,7 +1154,7 @@ class CheckpointEngine:
         try:
             return rep.hydrate(self.spec.directory, step=step,
                                io_config=self.spec.fp.writer,
-                               verify=self.spec.verify_on_load,
+                               verify=VERIFY_ON_LOAD,
                                readers=(self.spec.hydrate_readers
                                         if readers is None else readers),
                                cache=self.serve_cache,
@@ -1303,34 +1168,11 @@ class CheckpointEngine:
                 f"falling back to the remote tier", stacklevel=2)
             return self.hydrate_remote(step, readers=readers)
 
-    #: read-path aliases: these backends share the fastpersist on-disk
-    #: format, so loading THEIR checkpoints never needs their write-side
-    #: machinery (a tiered reader would demand an upload store; the
-    #: pipelined one would spin a pointless helper thread)
-    _READ_ALIASES = {
-        "fastpersist-pipelined": "fastpersist",
-        "fastpersist-tiered": "fastpersist",
-        "fastpersist-tiered-pipelined": "fastpersist",
-    }
-
-    def _reader_for(self, backend_name: str) -> CheckpointBackend:
-        if backend_name not in self._read_backends:
-            alias = self._READ_ALIASES.get(backend_name, backend_name)
-            if alias not in self._read_backends:
-                self._read_backends[alias] = \
-                    get_backend_factory(alias)(self.spec)
-            self._read_backends[backend_name] = self._read_backends[alias]
-        return self._read_backends[backend_name]
-
-
-def _takes(fn, name: str) -> bool:
-    """Whether ``fn`` accepts the keyword argument ``name``."""
-    try:
-        params = inspect.signature(fn).parameters
-    except (TypeError, ValueError):
-        return False
-    return name in params or any(p.kind is p.VAR_KEYWORD
-                                 for p in params.values())
+    def _reader_for(self, backend_name: str):
+        payload = _backend(backend_name).payload
+        if payload not in self._readers:
+            self._readers[payload] = payload(self.spec)
+        return self._readers[payload]
 
 
 def _to_device(state, device):

@@ -168,8 +168,8 @@ class RetentionManager:
         return pinned
 
     def after_commit(self):
-        """Call after a checkpoint commits (e.g. from the pipeline helper
-        or the trainer loop). Thread-safe, idempotent. Remote and peer
+        """Call after a checkpoint commits (e.g. from the engine's helper
+        thread or the trainer loop). Thread-safe, idempotent. Remote and peer
         pruning are only ENQUEUED here — each runs on its own tier's
         worker thread, so the caller (the training loop) never blocks on
         WAN/peer lists-and-deletes; a dead peer is the replicator's

@@ -1,5 +1,7 @@
 """Training launcher of the PyTorch port (the flags of
-``repro.launch.train`` plus ``--device``).
+``repro.launch.train`` plus ``--device``, less ``--ckpt-mode``,
+``--pipeline`` and ``--no-arena``: ``--backend`` names the engine's
+backend, or ``none``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm_1_6b \
         --steps 50 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt --every 1 \
@@ -19,6 +21,7 @@ import numpy as np
 
 from repro_torch.configs import get_config, reduced as make_reduced
 from repro_torch.core.checkpointer import FastPersistConfig
+from repro_torch.core.engine import available_backends
 from repro_torch.core.partition import Topology
 from repro_torch.core.writer import WriterConfig
 from repro_torch.optim.adam import AdamConfig
@@ -38,12 +41,12 @@ def main(argv=None):
     ap.add_argument("--gas", type=int, default=1)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--ckpt-dir", default=None)
-    ap.add_argument("--ckpt-mode", default="fastpersist",
-                    choices=["fastpersist", "baseline", "none"])
     ap.add_argument("--backend", default=None,
-                    help="explicit CheckpointEngine backend name "
-                         "(overrides --ckpt-mode/--pipeline); see "
-                         "repro_torch.core.engine.available_backends()")
+                    choices=[*available_backends(), "none"],
+                    help="CheckpointEngine backend (default "
+                         "fastpersist-pipelined, or "
+                         "fastpersist-tiered-pipelined with "
+                         "--upload-store); none saves nothing")
     ap.add_argument("--every", type=int, default=1)
     ap.add_argument("--keyframe-every", type=int, default=1,
                     help="incremental delta checkpoints: every Nth save "
@@ -58,8 +61,6 @@ def main(argv=None):
                     help="stripe a delta generation across the full "
                          "writer/volume fan-out once its packed payload "
                          "reaches this many MiB (0 = always stripe)")
-    ap.add_argument("--pipeline", action="store_true", default=True)
-    ap.add_argument("--no-pipeline", dest="pipeline", action="store_false")
     ap.add_argument("--writers", default="auto",
                     choices=["auto", "replica", "socket"])
     ap.add_argument("--dp", type=int, default=4,
@@ -79,9 +80,6 @@ def main(argv=None):
                          "ckpt_pack_dirty CUDA kernel) so delta saves "
                          "move only dirty blocks over PCIe; costs one "
                          "device-resident copy of the packed state")
-    ap.add_argument("--no-arena", dest="arena", action="store_false",
-                    default=True,
-                    help="disable the persistent serialize arena")
     ap.add_argument("--upload-store", default=None,
                     help="object-store spec for the second durability "
                          "tier (a directory path or file:// URL uses the "
@@ -137,25 +135,21 @@ def main(argv=None):
         cfg = make_reduced(cfg)
 
     ckpt = None
-    # an explicit --backend wins over --ckpt-mode, including "none"
-    if args.ckpt_dir and (args.backend or args.ckpt_mode != "none"):
+    if args.ckpt_dir and args.backend != "none":
         ckpt = CheckpointPolicy(
-            directory=args.ckpt_dir, every=args.every, mode=args.ckpt_mode,
-            pipeline=args.pipeline, backend=args.backend,
+            directory=args.ckpt_dir, every=args.every, backend=args.backend,
             volumes=(args.volumes.split(",") if args.volumes else None),
             restore_readers=restore_readers,
-            upload=args.upload_store,
-            replicate_peers=(args.peers.split(",") if args.peers
-                             else None),
+            upload_store=args.upload_store,
+            peers=(args.peers.split(",") if args.peers else None),
             replication_factor=args.replication_factor,
             failure_domain=args.failure_domain,
-            keyframe_every=args.keyframe_every,
             hydrate_readers=args.hydrate_readers,
             serve_cache_mb=args.serve_cache_mb,
             fp=FastPersistConfig(
                 strategy=args.writers,
                 topology=Topology(dp_degree=args.dp, ranks_per_node=4),
-                arena=args.arena,
+                keyframe_every=args.keyframe_every,
                 snapshot_chunk_mb=args.snapshot_chunk_mb,
                 device_dirty=args.device_dirty,
                 delta_quantize=args.delta_quantize,

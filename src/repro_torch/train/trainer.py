@@ -16,7 +16,6 @@ device is unavailable; only a caller that asks for "cpu" gets the CPU.
 """
 from __future__ import annotations
 
-import dataclasses
 import time
 from dataclasses import dataclass, field
 from typing import Optional
@@ -25,7 +24,6 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.checkpointer import FastPersistConfig
 from repro_torch.core.engine import CheckpointEngine, CheckpointSpec
 from repro_torch.core.retention import RetentionManager, RetentionPolicy
 from repro_torch.data.pipeline import DataConfig, TokenStream
@@ -37,68 +35,25 @@ from repro_torch.tree import tree_map
 
 
 @dataclass
-class CheckpointPolicy:
-    directory: str
+class CheckpointPolicy(CheckpointSpec):
+    """The trainer's checkpointing: a :class:`CheckpointSpec`, handed to
+    the engine as it is, plus the save cadence, retention and restore
+    width. ``backend=None`` picks ``fastpersist-pipelined``, or
+    ``fastpersist-tiered-pipelined`` when ``upload_store`` is set;
+    ``"none"`` builds no engine."""
+    backend: Optional[str] = None
     every: int = 1                     # paper: per-iteration
-    mode: str = "fastpersist"          # fastpersist | baseline | none
-    pipeline: bool = True
-    backend: Optional[str] = None      # explicit engine backend name;
-    #                                    overrides mode/pipeline when set
-    fp: FastPersistConfig = field(default_factory=FastPersistConfig)
     retention: Optional[RetentionPolicy] = None   # None = keep everything
-    #: shard destination volume roots (one per SSD/mount); None = all
-    #: shards under ``directory``
-    volumes: Optional[list] = None
     #: parallel-restore reader workers for ``Trainer.restore()``:
     #: "auto" sizes to the saved shard count (capped by CPUs), an int
     #: forces that many, None keeps the single-reader load
     restore_readers: Optional[object] = "auto"
-    #: second durability tier (DESIGN.md §8): object-store spec (path /
-    #: ``file://`` / registered ``scheme://`` URL / ObjectStore). When
-    #: set with mode="fastpersist", the engine runs a tiered backend:
-    #: sealed generations stream to the store after each local commit,
-    #: and ``Trainer.restore`` can hydrate from it (``tier="remote"``,
-    #: or automatically when the local directory is empty/lost).
-    upload: Optional[object] = None
-    #: peer-replication tier (DESIGN.md §11): ``[name=]store[@domain]``
-    #: specs / PeerConfig / store objects. After each local commit the
-    #: sealed generation streams to K peers in the background;
-    #: ``Trainer.restore(tier="peer")`` (or the automatic lost-node
-    #: fallback) hydrates from the healthiest peer, falling back to the
-    #: remote tier.
-    replicate_peers: Optional[list] = None
-    #: replicas each checkpoint should reach (spread across distinct
-    #: failure domains when available)
-    replication_factor: int = 2
-    #: this node's failure domain — peer placement avoids it whenever
-    #: any other usable domain exists
-    failure_domain: Optional[str] = None
-    #: incremental delta checkpoints (DESIGN.md §9): every Nth save is a
-    #: full keyframe; copied into ``fp.keyframe_every`` unless the
-    #: FastPersistConfig already sets it
-    keyframe_every: int = 1
-    #: range-fetch readers for remote/peer hydration (DESIGN.md §12)
-    hydrate_readers: int = 4
-    #: serving read cache budget in MiB (DESIGN.md §12): 0 disables;
-    #: > 0 routes hydration and per-tensor remote reads through a
-    #: digest-keyed LRU block cache under ``<directory>/.serve-cache``
-    serve_cache_mb: int = 0
 
     def __post_init__(self):
-        if self.keyframe_every > 1 and self.fp.keyframe_every == 1:
-            self.fp = dataclasses.replace(self.fp,
-                                          keyframe_every=self.keyframe_every)
-
-    def backend_name(self) -> str:
-        """Map the (legacy) mode/pipeline pair onto a registry key."""
-        if self.backend is not None:
-            return self.backend
-        if self.mode == "fastpersist":
-            if self.upload is not None:
-                return ("fastpersist-tiered-pipelined" if self.pipeline
-                        else "fastpersist-tiered")
-            return "fastpersist-pipelined" if self.pipeline else "fastpersist"
-        return self.mode
+        if self.backend is None:
+            self.backend = ("fastpersist-tiered-pipelined"
+                            if self.upload_store is not None
+                            else "fastpersist-pipelined")
 
 
 @dataclass
@@ -141,18 +96,11 @@ class Trainer:
         self.ckpt_stall = 0.0
         #: SaveHandle of every save this trainer submitted, in order
         self.saves = []
-        if cfg.checkpoint and cfg.checkpoint.backend_name() != "none":
+        if cfg.checkpoint and cfg.checkpoint.backend != "none":
             self._setup_checkpointer(cfg.checkpoint)
 
     def _setup_checkpointer(self, pol: CheckpointPolicy):
-        self.engine = CheckpointEngine(CheckpointSpec(
-            directory=pol.directory, backend=pol.backend_name(), fp=pol.fp,
-            volumes=pol.volumes, upload_store=pol.upload,
-            peers=pol.replicate_peers,
-            replication_factor=pol.replication_factor,
-            failure_domain=pol.failure_domain,
-            hydrate_readers=pol.hydrate_readers,
-            serve_cache_mb=pol.serve_cache_mb))
+        self.engine = CheckpointEngine(pol)
         # GC follows the engine's volume mapping (or deleting a step would
         # strand its striped shards), and sees the upload and peer queues,
         # so it never deletes a step whose remote COMMIT has not landed

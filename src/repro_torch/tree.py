@@ -20,45 +20,50 @@ def _is_leaf(x) -> bool:
     return isinstance(x, (torch.Tensor, np.ndarray))
 
 
+def _flatten_into(out: list, x, path: list):
+    # module level, not a nested closure: a recursive closure reaches
+    # itself through its own cell, and that cycle would keep ``out``,
+    # and with it every leaf, alive until a full collection
+    if _is_leaf(x):
+        out.append(("/".join(path), x))
+    elif isinstance(x, dict):
+        for k in sorted(x):
+            _flatten_into(out, x[k], path + [str(k)])
+    elif _is_namedtuple(x):
+        for f in x._fields:
+            _flatten_into(out, getattr(x, f), path + ["." + f])
+    elif isinstance(x, (list, tuple)):
+        for i, v in enumerate(x):
+            _flatten_into(out, v, path + [str(i)])
+    elif x is not None:
+        raise TypeError(f"unsupported checkpoint leaf {type(x)!r} at "
+                        f"{'/'.join(path)!r}")
+
+
 def flatten(state) -> List[Tuple[str, Any]]:
     """``[(name, leaf), ...]`` in the reference's stream order."""
     out: List[Tuple[str, Any]] = []
-
-    def walk(x, path):
-        if _is_leaf(x):
-            out.append(("/".join(path), x))
-        elif isinstance(x, dict):
-            for k in sorted(x):
-                walk(x[k], path + [str(k)])
-        elif _is_namedtuple(x):
-            for f in x._fields:
-                walk(getattr(x, f), path + ["." + f])
-        elif isinstance(x, (list, tuple)):
-            for i, v in enumerate(x):
-                walk(v, path + [str(i)])
-        elif x is not None:
-            raise TypeError(f"unsupported checkpoint leaf {type(x)!r} at "
-                            f"{'/'.join(path)!r}")
-
-    walk(state, [])
+    _flatten_into(out, state, [])
     return out
+
+
+def _rebuild(x, path: list, named: dict):
+    if _is_leaf(x):
+        return named["/".join(path)]
+    if isinstance(x, dict):
+        return {k: _rebuild(v, path + [str(k)], named) for k, v in x.items()}
+    if _is_namedtuple(x):
+        return type(x)(*(_rebuild(getattr(x, f), path + ["." + f], named)
+                         for f in x._fields))
+    if isinstance(x, (list, tuple)):
+        return type(x)(_rebuild(v, path + [str(i)], named)
+                       for i, v in enumerate(x))
+    return x
 
 
 def unflatten(like, named: dict):
     """Rebuild ``like``'s structure with ``named[name]`` at each leaf."""
-    def walk(x, path):
-        if _is_leaf(x):
-            return named["/".join(path)]
-        if isinstance(x, dict):
-            return {k: walk(v, path + [str(k)]) for k, v in x.items()}
-        if _is_namedtuple(x):
-            return type(x)(*(walk(getattr(x, f), path + ["." + f])
-                             for f in x._fields))
-        if isinstance(x, (list, tuple)):
-            return type(x)(walk(v, path + [str(i)]) for i, v in enumerate(x))
-        return x
-
-    return walk(like, [])
+    return _rebuild(like, [], named)
 
 
 def treedef_str(state) -> str:

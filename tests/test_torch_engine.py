@@ -3,21 +3,28 @@ cases here, now held to the ported behaviour: quantized saves round-trip
 and raise on a corrupted payload like every other save; each durability
 tier option builds an engine whose tier works (upload, peers, serving
 cache, the tiered backends), and the remote/peer loads, per-tensor
-serving, owned reads and retention round-trip."""
+serving, owned reads and retention round-trip; the pipelined backend
+snapshots before it writes and puts the reference's bytes on disk."""
 import os
 import shutil
+import threading
 
 import numpy as np
 import pytest
 import torch
 
+import test_torch_faults as faults
 from repro.core.checkpointer import FastPersistConfig as RefFP
 from repro.core.engine import CheckpointEngine as RefEngine
 from repro.core.engine import CheckpointSpec as RefSpec
+from repro.core.partition import Topology as RefTopology
+from repro_torch.convert import train_state_from_numpy
 from repro_torch.core.checkpointer import FastPersistConfig
 from repro_torch.core.engine import (CheckpointEngine, CheckpointSpec,
                                      available_backends)
+from repro_torch.core.partition import Topology
 from repro_torch.train.trainer import CheckpointPolicy
+from repro_torch.tree import flatten
 
 
 def _state():
@@ -167,39 +174,99 @@ def test_restore_moves_to_device_and_copies(tmp_path):
     assert [r.name for r in man.records] == ["b", "w"]
 
 
-@pytest.mark.parametrize("quantize", [False, True])
-def test_old_signature_backend_still_loads(tmp_path, quantize):
-    """A backend registered with the pre-restore-pipeline signature of
-    ``read_payload_sharded`` (no ``parallel``, no ``device``) keeps
-    working for plain loads and for ``load(device=...)``: the engine
-    passes it neither and moves the result itself; a quantized payload
-    is then dequantized on the host."""
-    from repro_torch.core import engine as eng_mod
+def _shard_bytes(root, step):
+    d = os.path.join(root, f"ckpt_{step:08d}")
+    return {n: open(os.path.join(d, n), "rb").read()
+            for n in sorted(os.listdir(d)) if n.startswith("shard_")}
 
-    class OldSigBackend(eng_mod.FastPersistBackend):
-        def read_payload_sharded(self, directory, step, like=None,
-                                 verify=True, marker=None,
-                                 volume_roots=None):     # old shape
-            return super().read_payload_sharded(
-                directory, step, like=like, verify=verify,
-                marker=marker, volume_roots=volume_roots)
 
-    eng_mod.register_backend("old-sig", OldSigBackend, overwrite=True)
-    try:
-        state = _state()
-        eng = CheckpointEngine(CheckpointSpec(
-            str(tmp_path), backend="old-sig",
-            fp=FastPersistConfig(quantize=quantize)))
-        eng.save(state, 1).wait()
-        plain, _ = eng.load(1, like=state)
-        moved, man = eng.load(1, like=state, device="cpu")
-        assert bool(man.extras.get("quantized")) == quantize
-        for got in (plain, moved):
-            assert got["b"].dtype == torch.bfloat16
-            assert torch.equal(got["b"].float(), torch.ones(8))
-            if quantize:                 # one block, amax 4095: bound 16.1
-                assert (got["w"] - state["w"]).abs().max() <= 4095 / 254
-            else:
-                assert torch.equal(got["w"], state["w"])
-    finally:
-        eng_mod.unregister_backend("old-sig")
+@pytest.mark.parametrize("chunk_mb", [0, 1])
+def test_pipelined_saves_equal_reference_on_disk(tmp_path, chunk_mb):
+    """Three pipelined saves of a state that the caller changes in place
+    as soon as each save's snapshot has landed: the shards equal the
+    reference engine's saves of the unchanged states, and both packages
+    load them back."""
+    states = [faults.np_state()]
+    for i in range(2):
+        states.append(faults.mutate(states[-1], i))
+    p, r = str(tmp_path / "p"), str(tmp_path / "r")
+    port = CheckpointEngine(CheckpointSpec(
+        p, backend="fastpersist-pipelined", fp=FastPersistConfig(
+            strategy="replica", topology=Topology(dp_degree=4),
+            snapshot_chunk_mb=chunk_mb)))
+    ref = RefEngine(RefSpec(
+        r, backend="fastpersist-pipelined", fp=RefFP(
+            strategy="replica", topology=RefTopology(dp_degree=4),
+            snapshot_chunk_mb=chunk_mb)))
+    live = train_state_from_numpy(states[0], device="cpu")
+    for step, s in enumerate(states, start=1):
+        want = dict(flatten(train_state_from_numpy(s, device="cpu")))
+        for name, t in flatten(live):        # the optimizer, in place
+            t.copy_(want[name])
+        port.save(live, step, {"step": step})
+        port.wait_snapshot()
+        for _, t in flatten(live):           # the next update, at once
+            t.add_(1) if t.is_floating_point() else t.add_(7)
+        ref.save(s, step, {"step": step})
+    port.close()
+    ref.close()
+    assert port.stats.committed == ref.stats.committed == 3
+    for step, s in enumerate(states, start=1):
+        assert _shard_bytes(p, step) == _shard_bytes(r, step)
+        got, man = CheckpointEngine(CheckpointSpec(r)).load(step)
+        faults.assert_equal_state(got, s)
+        want, _ = RefEngine(RefSpec(p)).load(step)
+        faults.assert_equal_state(want, s)
+        assert man.extras == {"step": step}
+
+
+def _hold_writes(monkeypatch, release):
+    """Every shard write of the port's checkpointer waits for ``release``
+    (an Event), or raises it (an exception)."""
+    from repro_torch.core import checkpointer
+    write = checkpointer.write_stream
+
+    def held(*args, **kwargs):
+        if isinstance(release, BaseException):
+            raise release
+        assert release.wait(30), "the test never released the write"
+        return write(*args, **kwargs)
+    monkeypatch.setattr(checkpointer, "write_stream", held)
+
+
+def test_snapshot_lands_before_the_write(tmp_path, monkeypatch):
+    """``wait_snapshot()`` returns while the save's write is still held
+    back, and the state changed in place after it never reaches the
+    checkpoint."""
+    release = threading.Event()
+    _hold_writes(monkeypatch, release)
+    eng = CheckpointEngine(CheckpointSpec(
+        str(tmp_path), backend="fastpersist-pipelined"))
+    state = _state()
+    before = {k: v.clone() for k, v in state.items()}
+    h = eng.save(state, 1)
+    eng.wait_snapshot()
+    assert h.snapshot_done() and not h.done()   # the write overlaps
+    for t in state.values():
+        t.add_(1)
+    release.set()
+    assert h.wait().total_bytes > 0
+    got, _ = eng.load(1)
+    for k, v in before.items():
+        assert torch.equal(got[k], v), k
+    eng.close()
+
+
+def test_a_failed_pipelined_save_surfaces_at_wait(tmp_path, monkeypatch):
+    """A pipelined save whose write fails commits nothing, never leaves a
+    caller hanging on its snapshot, and re-raises at ``wait()``."""
+    _hold_writes(monkeypatch, OSError("disk gone"))
+    eng = CheckpointEngine(CheckpointSpec(
+        str(tmp_path), backend="fastpersist-pipelined"))
+    h = eng.save(_state(), 1)
+    with pytest.raises(OSError, match="disk gone"):
+        eng.wait_snapshot()
+        eng.wait()
+    assert isinstance(h.exception(), OSError)
+    assert eng.steps() == [] and eng.stats.failed == 1
+    eng.close()

@@ -52,7 +52,7 @@ print("imported", len(names), "modules")
 
 
 TIER_MODULES = ["repro_torch.core." + m for m in
-                ("retry", "upload", "peer", "serve", "retention", "pipeline",
+                ("retry", "upload", "peer", "serve", "retention",
                  "overlap")] + ["repro_torch.sharding",
                                 "repro_torch.sharding.specs"]
 
@@ -60,7 +60,8 @@ TIER_MODULES = ["repro_torch.core." + m for m in
 def test_tier_modules_import_no_jax():
     """The modules of the durability-tier slice exist and import nothing
     of JAX, the JAX package or ml_dtypes; ``repro_torch.core`` exports
-    what ``repro.core`` exports."""
+    what ``repro.core`` exports, its fixed backend table in place of the
+    reference's registry and ``PipelinedCheckpointer``."""
     code = f"""
 import importlib, sys
 for name in {TIER_MODULES!r}:
@@ -69,9 +70,9 @@ from repro_torch.sharding.specs import zero1_ownership
 import repro_torch.core as core
 want = ["LocalObjectStore", "ObjectStore", "UploadManager", "UploadStats",
         "hydrate", "make_store", "register_store_scheme", "remote_steps",
-        "PipelinedCheckpointer", "PipelineStats", "IterationModel",
-        "estimate_iteration", "effective_overhead", "CheckpointBackend",
-        "EngineStats", "register_backend", "DeltaPlan", "dirty_byte_spans"]
+        "IterationModel", "estimate_iteration", "effective_overhead",
+        "BACKENDS", "available_backends", "EngineStats", "DeltaPlan",
+        "dirty_byte_spans"]
 missing = [n for n in want if not hasattr(core, n)]
 assert not missing, missing
 bad = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r})

@@ -1,135 +1,23 @@
-"""The pre-engine ``PipelinedCheckpointer``, the analytic overlap model
-and the retry discipline of the port against the reference's, on the
-CPU. The pipelined saves put the reference's bytes on disk, and since
-the port's state is updated in place, ``submit`` returns only once the
-snapshot has landed: values changed right after it never reach the
-checkpoint. The overlap model gives the reference's numbers for the
-same peak FLOP rate, which the port requires from the caller. Exact
-where bytes and step counts are compared; the model's floats agree to
+"""The analytic overlap model and the retry discipline of the port
+against the reference's, on the CPU (the pipelined saves are held in
+test_torch_engine.py). The overlap model gives the reference's numbers
+for the same peak FLOP rate, which the port requires from the caller.
+Exact where step counts are compared; the model's floats agree to
 1e-12 relative (the same formulas, evaluated in the same order)."""
-import os
 import random
 import threading
 import time
 
 import numpy as np
 import pytest
-import torch
 
-import test_torch_faults as faults
 from repro import configs as rconfigs
 from repro.core import overlap as roverlap
 from repro.core import retry as rretry
-from repro.core.checkpointer import FastPersistCheckpointer as RefFPC
-from repro.core.checkpointer import FastPersistConfig as RefFP
 from repro.core.partition import Topology as RefTopology
-from repro.core.pipeline import PipelinedCheckpointer as RefPipelined
 from repro_torch import configs
-from repro_torch.convert import train_state_from_numpy
 from repro_torch.core import overlap, retry
-from repro_torch.core.checkpointer import (FastPersistCheckpointer,
-                                           FastPersistConfig)
 from repro_torch.core.partition import Topology
-from repro_torch.core.pipeline import PipelinedCheckpointer
-from repro_torch.tree import flatten
-
-
-def _shard_bytes(root, step):
-    d = os.path.join(root, f"ckpt_{step:08d}")
-    return {n: open(os.path.join(d, n), "rb").read()
-            for n in sorted(os.listdir(d)) if n.startswith("shard_")}
-
-
-@pytest.mark.parametrize("chunk_mb", [0, 1])
-def test_pipelined_saves_equal_reference_on_disk(tmp_path, chunk_mb):
-    """Three pipelined saves of a state that the caller changes in place
-    right after each submit: the shards equal the reference's saves of
-    the unchanged states, and both packages load them back."""
-    states = [faults.np_state()]
-    for i in range(2):
-        states.append(faults.mutate(states[-1], i))
-    port = PipelinedCheckpointer(FastPersistCheckpointer(
-        str(tmp_path / "p"), FastPersistConfig(
-            strategy="replica", topology=Topology(dp_degree=4),
-            snapshot_chunk_mb=chunk_mb)))
-    ref = RefPipelined(RefFPC(str(tmp_path / "r"), RefFP(
-        strategy="replica", topology=RefTopology(dp_degree=4),
-        snapshot_chunk_mb=chunk_mb)))
-    live = train_state_from_numpy(states[0], device="cpu")
-    for step, s in enumerate(states, start=1):
-        for name, t in flatten(live):        # the optimizer, in place
-            t.copy_(dict(flatten(train_state_from_numpy(
-                s, device="cpu")))[name])
-        port.submit(live, step, {"step": step})
-        for _, t in flatten(live):           # the next update, at once
-            t.add_(1) if t.is_floating_point() else t.add_(7)
-        ref.submit(s, step, {"step": step})
-    port.close()
-    ref.close()
-    assert port.stats.committed == ref.stats.committed == 3
-    for step, s in enumerate(states, start=1):
-        assert _shard_bytes(str(tmp_path / "p"), step) == \
-            _shard_bytes(str(tmp_path / "r"), step)
-        got, man = FastPersistCheckpointer(str(tmp_path / "r")).load(step)
-        faults.assert_equal_state(got, s)
-        want, _ = RefFPC(str(tmp_path / "p")).load(step)
-        faults.assert_equal_state(want, s)
-        assert man.extras == {"step": step}
-
-
-class _SlowWriter:
-    """Signals its snapshot at once, then takes ``delay`` to write."""
-
-    def __init__(self, delay, signal=True):
-        self.delay, self.saved = delay, []
-        if signal:
-            self.on_snapshot = None
-
-    def save(self, state, step, extras=None):
-        snap = {k: v.clone() for k, v in state.items()}
-        cb = getattr(self, "on_snapshot", None)
-        if cb is not None:
-            cb()
-        time.sleep(self.delay)
-        self.saved.append((step, snap))
-        return step
-
-
-def test_submit_returns_after_the_snapshot_not_the_write():
-    inner = _SlowWriter(delay=0.4)
-    pc = PipelinedCheckpointer(inner)
-    t0 = time.perf_counter()
-    state = {"w": torch.zeros(4)}
-    pc.submit(state, 1)
-    assert time.perf_counter() - t0 < 0.3     # the write overlaps
-    state["w"].add_(1)                         # safe: snapshot landed
-    pc.wait()
-    pc.close()
-    assert inner.saved[0][0] == 1
-    assert torch.equal(inner.saved[0][1]["w"], torch.zeros(4))
-    assert pc.stats.snapshot_stall_seconds < 0.3
-
-
-def test_submit_without_snapshot_signal_waits_for_the_save():
-    inner = _SlowWriter(delay=0.2, signal=False)
-    pc = PipelinedCheckpointer(inner)
-    t0 = time.perf_counter()
-    pc.submit({"w": torch.zeros(2)}, 1)
-    assert time.perf_counter() - t0 >= 0.15
-    pc.close()
-    assert pc.stats.committed == 1
-
-
-def test_a_failed_save_surfaces_at_submit_or_wait():
-    class Boom:
-        def save(self, state, step, extras=None):
-            raise RuntimeError("disk gone")
-
-    pc = PipelinedCheckpointer(Boom())
-    with pytest.raises(RuntimeError, match="disk gone"):
-        pc.submit({"w": torch.zeros(1)}, 1)
-        pc.wait()
-    pc.close()
 
 
 # ============================================================== overlap

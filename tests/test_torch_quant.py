@@ -391,8 +391,8 @@ def test_trainer_delta_quantize_restores_within_bound(tmp_path):
     d = str(tmp_path / "ckpt")
     pol = CheckpointPolicy(
         directory=d, every=1, backend="fastpersist-pipelined",
-        keyframe_every=2, fp=FastPersistConfig(
-            device_dirty=True, delta_quantize=True,
+        fp=FastPersistConfig(
+            device_dirty=True, delta_quantize=True, keyframe_every=2,
             topology=Topology(dp_degree=2)))
     tcfg = TrainerConfig(model=_reduced_cfg(), steps=2, global_batch=2,
                          seq_len=16, checkpoint=pol, log_every=100)

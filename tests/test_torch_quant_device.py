@@ -350,7 +350,7 @@ def test_quantized_restore_onto_card(cuda, tmp_path):
     want, _ = RefEngine(RefSpec(str(tmp_path))).load()
     for n in s:
         assert got[n].is_cuda and _bits(got[n]) == _bits(want[n]), n
-    assert eng._backend._inner.last_dequantize_seconds > 0
+    assert eng._payload.ckpt.last_dequantize_seconds > 0
 
 
 @pytest.mark.gpu

@@ -49,12 +49,12 @@ def _tiers(tmp_path):
 def _trainer(cfg, tmp_path, steps, retention=True):
     bucket, peers = _tiers(tmp_path)
     pol = CheckpointPolicy(
-        directory=str(tmp_path / "ckpt"), every=1, upload=bucket,
-        replicate_peers=peers, replication_factor=2,
-        failure_domain="rack-w", keyframe_every=2, hydrate_readers=2,
+        directory=str(tmp_path / "ckpt"), every=1, upload_store=bucket,
+        peers=peers, replication_factor=2,
+        failure_domain="rack-w", hydrate_readers=2,
         serve_cache_mb=8,
         retention=RetentionPolicy(keep_last=1) if retention else None,
-        fp=FastPersistConfig(device_dirty=True,
+        fp=FastPersistConfig(device_dirty=True, keyframe_every=2,
                              topology=Topology(dp_degree=2)))
     return Trainer(TrainerConfig(model=cfg, steps=steps, global_batch=2,
                                  seq_len=16, checkpoint=pol, log_every=100),

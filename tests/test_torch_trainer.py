@@ -7,7 +7,9 @@ reference Trainer and a port Trainer resumed from the same checkpoint
 differ only by bf16 rounding in the forward pass (see
 test_torch_model.py): within 1e-3 relative."""
 import dataclasses
+import gc
 import shutil
+import weakref
 
 import jax
 import numpy as np
@@ -26,7 +28,7 @@ from repro_torch.core.checkpointer import FastPersistConfig
 from repro_torch.core.partition import Topology
 from repro_torch.launch import train as launch
 from repro_torch.train.trainer import CheckpointPolicy, Trainer, TrainerConfig
-from repro_torch.tree import flatten
+from repro_torch.tree import flatten, leaves
 
 TINY = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
             d_ff=128, vocab_size=256)
@@ -47,8 +49,8 @@ def _bits(a) -> bytes:
 def _port_trainer(cfg, d, steps):
     pol = CheckpointPolicy(
         directory=d, every=1, backend="fastpersist-pipelined",
-        keyframe_every=2, fp=FastPersistConfig(
-            device_dirty=True, topology=Topology(dp_degree=2)))
+        fp=FastPersistConfig(device_dirty=True, keyframe_every=2,
+                             topology=Topology(dp_degree=2)))
     return Trainer(TrainerConfig(model=cfg, steps=steps, global_batch=2,
                                  seq_len=16, checkpoint=pol, log_every=100),
                    device="cpu")
@@ -164,7 +166,7 @@ def test_launcher_tier_flags_are_never_silent(tmp_path, monkeypatch, flags,
                  "--device", "cpu", "--ckpt-dir", str(tmp_path), "--restore"]
                 + flags)
     pol, flag, value = seen["pol"], flags[0], flags[1]
-    got = {"--peers": pol.replicate_peers, "--upload-store": pol.upload,
+    got = {"--peers": pol.peers, "--upload-store": pol.upload_store,
            "--serve-cache-mb": pol.serve_cache_mb,
            "--restore-tier": seen["tier"],
            "--replication-factor": pol.replication_factor,
@@ -174,6 +176,38 @@ def test_launcher_tier_flags_are_never_silent(tmp_path, monkeypatch, flags,
             "--replication-factor": 2, "--hydrate-readers": 8}.get(
         flag, value)
     assert got == want
-    assert pol.backend_name() == ("fastpersist-tiered-pipelined"
-                                  if flag == "--upload-store"
-                                  else "fastpersist-pipelined")
+    assert pol.backend == ("fastpersist-tiered-pipelined"
+                           if flag == "--upload-store"
+                           else "fastpersist-pipelined")
+
+
+@pytest.mark.parametrize("backend", ["none", "fastpersist",
+                                     "fastpersist-pipelined"])
+def test_dropped_state_is_freed_without_a_collection(tmp_path, backend):
+    """ROADMAP C.29: with the collector off, a trainer that ran a step
+    and a save frees its parameters and master weights as soon as it
+    drops its state — nothing holds them in a reference cycle, and the
+    pipelined engine's helper thread keeps no finished job."""
+    _, cfg = _cfgs()
+    pol = CheckpointPolicy(directory=str(tmp_path), backend=backend,
+                           every=100,
+                           fp=FastPersistConfig(topology=Topology(
+                               dp_degree=2)))
+    gc.collect()
+    gc.disable()
+    try:
+        tr = Trainer(TrainerConfig(model=cfg, steps=1, global_batch=2,
+                                   seq_len=16, checkpoint=pol,
+                                   log_every=100), device="cpu")
+        tr.run()
+        if tr.engine is not None:
+            tr._save(1)
+            tr.saves[-1].wait()
+        param = weakref.ref(leaves(tr.state.params)[0])
+        master = weakref.ref(leaves(tr.state.opt.master)[0])
+        tr.state = None
+        assert param() is None and master() is None
+    finally:
+        gc.enable()
+    if tr.engine is not None:
+        tr.engine.close()
