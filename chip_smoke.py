@@ -33,11 +33,17 @@ Phases, each of which exits non-zero on failure:
    plain version on every leaf of the main path's model over two steps,
    with f32 and bf16 gradients, timed there and at the 2.7B benchmark
    cell's leaves beside its bytes bound, the plain version and the
-   library's fused AdamW;
+   library's fused AdamW; then flash_attention's backward (two bf16
+   tensor-core kernels, no TPU counterpart) and the forward's
+   log-sum-exp at the benchmark cells' train-step shapes, internvl2_26b's
+   GQA 6:1 and the main path's, against the plain versions and autograd
+   of ``layers.attention``, timed beside its bound, the plain version
+   and SDPA's backward;
 4. main path: ``repro_torch`` Trainer on ``stablelm_1_6b`` at full width
    on ``cuda``, checkpointing every step (fastpersist-pipelined,
    keyframe_every=2, device-dirty), with the kernels' launch counts
-   read around it (the fused Adam update once a leaf a step);
+   read around it (the fused Adam update once a leaf a step; the
+   attention's forward and backward kernels once a layer a micro-batch);
 5. restore: a fresh Trainer restores the latest step bit-equal to the
    live state and data position;
 6. scoring: each layer's bf16 attention output held against the plain
@@ -211,6 +217,13 @@ ATTN_GPT3 = {"gpt3_2_7b": (BATCH, 32, SEQ, 80),
 #: internvl2_26b's attention on phase 12's batch (256 patch tokens + 512
 #: text tokens): (B, H, KV, L, hd), GQA 6:1 at head dim 128
 ATTN_VLM = (BATCH, 48, 8, 256 + SEQ, 128)
+#: flash_attention's backward in phase 3, causal (B, H, KV, L, hd): the
+#: benchmark cells' train steps (gpt3_2_7b_tp4, hd 80; gpt3_1_3b_tp2, hd
+#: 128), internvl2_26b's GQA 6:1 and the main path's stablelm_1_6b
+ATTN_GRAD = {"gpt3_2_7b_tp4": (4, 8, 8, 2048, 80),
+             "gpt3_1_3b_tp2": (4, 8, 8, 2048, 128),
+             "internvl2_26b": ATTN_VLM,
+             "stablelm_1_6b": (BATCH, 32, 32, SEQ, 64)}
 #: gpt3_1_8b_moe's attention in phase 13 (a), 16 heads of 64: over the
 #: whole batch (one process, and each rank of the 1 x 4 mesh) and over
 #: one data shard (each rank of the 2 x 2 mesh)
@@ -307,6 +320,7 @@ def _zero_counts():
               cp.ckpt_quant_blocks, ops.flash_attention, ops.ssd_intra_chunk,
               kadam.adam_update_):
         w.launches = 0
+    ops.flash_attention.backward_launches = 0
 
 
 def _close(name, got, want, tol, rtol=None, quiet=False, shares=None):
@@ -649,6 +663,117 @@ def check_attention(device) -> dict:
             "internvl2_ms": vlm["ms"]}
 
 
+def check_attention_grad(device) -> dict:
+    """Phase 3, flash_attention's backward: at each shape of ATTN_GRAD,
+    causal, on the model's strided views, the forward's output and
+    log-sum-exp and the gradient's dq, dk, dv through ``ops.flash_attention``
+    against the plain versions (the backward's from the kernel's own
+    output and log-sum-exp) and against autograd of ``layers.attention``
+    (bf16), each within TOL_ATTN_BF16 of the largest magnitude of its
+    reference. Then the backward alone (``autograd.grad`` over a kept
+    graph) timed with CUDA events beside its bound, the plain version and
+    SDPA's backward (the yardstick only: the port never calls it), and
+    the forward with and without the log-sum-exp. The bound counts the
+    products the backward needs per causal pair: S, dP, dV and dK and dQ
+    each as two (dS as bf16 hi + lo), 7 x 2 hd FLOP at the bf16 rate,
+    against q, k, v, o, dO and the log-sum-exp read and dq, dk, dv
+    written once. Returns the ``kernels`` entry at gpt3_2_7b_tp4's shape
+    (launches filled in by phase 4)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import (flash_attention_bwd_plain,
+                                         flash_attention_plain)
+    from repro_torch.models import layers as ly
+    gen = torch.Generator(device=device).manual_seed(2)
+    print("  flash_attention backward (bf16 tensor-core kernels) against "
+          "flash_attention_bwd_plain and autograd of layers.attention:",
+          flush=True)
+
+    def share(got, want):
+        got, want = got.detach().float(), want.float()
+        if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+            fail("flash_attention backward: non-finite values")
+        return float((got - want).abs().max() / want.abs().max())
+
+    entry, worst = None, 0.0
+    for name, (B, H, KV, L, hd) in ATTN_GRAD.items():
+        q = torch.randn((B, L, H, hd), generator=gen, device=device)
+        k, v = (torch.randn((B, L, KV, hd), generator=gen, device=device)
+                for _ in range(2))
+        do = torch.randn((B, L, H, hd), generator=gen, device=device)
+        q, k, v, do = (t.to(torch.bfloat16) for t in (q, k, v, do))
+        views = [t.transpose(1, 2).detach().requires_grad_()
+                 for t in (q, k, v)]
+        dot = do.transpose(1, 2)
+        out = ops.flash_attention(*views)
+        grads = torch.autograd.grad(out, views, dot, retain_graph=True)
+        qt, kt, vt = (x.detach() for x in views)
+        o2, lse = fa._forward(qt, kt, vt, True, None, None, want_lse=True)
+        want_o, want_lse = flash_attention_plain(qt, kt, vt, lse=True)
+        plain = flash_attention_bwd_plain(qt, kt, vt, o2, lse, dot)
+        xs = [t.detach().requires_grad_() for t in (q, k, v)]
+        pos = torch.arange(L, device=device)
+        ly.attention(*xs, q_pos=pos, kv_pos=pos).backward(do)
+        torch.cuda.synchronize()
+        if not torch.equal(o2, out.detach()):
+            fail(f"{name}: the forward with the log-sum-exp differs from "
+                 f"the forward without it")
+        err_lse = float((lse[..., :L] - want_lse).abs().max())
+        if err_lse > 1e-3 or not bool(torch.isinf(lse[..., L:]).all()):
+            fail(f"{name}: log-sum-exp off the plain version by {err_lse}")
+        shares = {"o": share(out, want_o)}
+        for n, g, pl, x in zip(("dq", "dk", "dv"), grads, plain, xs):
+            shares[n] = share(g, pl)
+            shares[n + " vs autograd"] = share(g, x.grad.transpose(1, 2))
+            worst = max(worst, float((g.float() - pl.float()).abs().max()))
+        if max(shares.values()) > TOL_ATTN_BF16:
+            fail(f"{name}: flash_attention backward beyond {TOL_ATTN_BF16} "
+                 f"of the largest magnitude: {shares}")
+        print(f"  ok {name} (B, H, KV, L, hd) {(B, H, KV, L, hd)}: "
+              f"|lse err| {err_lse:.2e}; largest |err| / max|ref|: "
+              + ", ".join(f"{n} {v:.2e}" for n, v in shares.items()),
+              flush=True)
+
+        sd = [t.detach().requires_grad_() for t in views]
+        sdpa = F.scaled_dot_product_attention(*sd, is_causal=True,
+                                              enable_gqa=KV != H)
+        pairs = B * H * L * (L + 1) // 2
+        flops = 7 * 2 * hd * pairs
+        n_bytes = 2 * hd * B * L * 4 * (H + KV) + 4 * B * H * L
+        bound_ms, bound_by = _bound(n_bytes, flops / BF16_FLOPS)
+        t = {"ms": _cuda_ms(lambda: torch.autograd.grad(
+                 out, views, dot, retain_graph=True)),
+             "plain_ms": _cuda_ms(lambda: flash_attention_bwd_plain(
+                 qt, kt, vt, o2, lse, dot)),
+             "library_ms": _cuda_ms(lambda: torch.autograd.grad(
+                 sdpa, sd, dot, retain_graph=True)),
+             "fwd_ms": _cuda_ms(lambda: fa._forward(
+                 qt, kt, vt, True, None, None, want_lse=False)),
+             "fwd_lse_ms": _cuda_ms(lambda: fa._forward(
+                 qt, kt, vt, True, None, None, want_lse=True)),
+             "bound_ms": bound_ms, "bound_by": bound_by}
+        print(f"  time flash_attention backward {name}: {t['ms']:.4f} ms "
+              f"({bound_ms / t['ms']:.1%} of its bound {bound_ms:.4f} ms by "
+              f"{bound_by}: {flops} FLOP, {n_bytes} B); plain "
+              f"{t['plain_ms']:.4f} ms; SDPA's backward "
+              f"{t['library_ms']:.4f} ms; forward {t['fwd_ms']:.4f} ms, "
+              f"with the log-sum-exp {t['fwd_lse_ms']:.4f} ms", flush=True)
+        if entry is None:
+            entry = {"name": "flash_attention_bwd", "route": "cuda",
+                     "source": f"{CSRC}/flash_attention.cu",
+                     "replaces": "none: the reference leaves its training "
+                                 "attention to XLA",
+                     "launches": 0, "shape": f"bf16 causal {name} "
+                                             f"{(B, H, KV, L, hd)}",
+                     **t}
+        del out, grads, sdpa, plain, xs
+        torch.cuda.empty_cache()
+    entry["max_abs_err"] = worst
+    return entry
+
+
 def check_ssd(device) -> dict:
     """Phase 3, B4: ssd_intra_chunk against its plain version at
     mamba2_370m's shape (batch 4 x 2048, B and C from one group expanded
@@ -919,6 +1044,7 @@ def main_path(device, steps: int, batch: int, seq: int):
     from repro_torch.core.partition import Topology
     from repro_torch.kernels import adam as kadam
     from repro_torch.kernels import ckpt_pack as cp
+    from repro_torch.kernels import ops
     from repro_torch.train.trainer import (CheckpointPolicy, Trainer,
                                            TrainerConfig)
     from repro_torch.tree import flatten, leaves
@@ -965,7 +1091,10 @@ def main_path(device, steps: int, batch: int, seq: int):
         wall = time.perf_counter() - t0
         launches = {"ckpt_pack_dirty_blocks": cp.ckpt_pack_dirty_blocks.launches,
                     "ckpt_pack_blocks": cp.ckpt_pack_blocks.launches,
-                    "adam_update_": kadam.adam_update_.launches}
+                    "adam_update_": kadam.adam_update_.launches,
+                    "flash_attention": ops.flash_attention.launches,
+                    "flash_attention_bwd":
+                        ops.flash_attention.backward_launches}
         loss = float(metrics["loss"])
         print(f"  done: loss={loss:.4f} wall={wall:.2f} s "
               f"iter_times_s={[round(t, 3) for t in tr.iter_times]} "
@@ -1004,6 +1133,15 @@ def main_path(device, steps: int, batch: int, seq: int):
         if launches["adam_update_"] != n_adam:
             fail(f"adam_update_ launched {launches['adam_update_']} times "
                  f"over {steps} steps; expected {n_adam}, one a leaf a step")
+        # the train step's attention: the forward and the backward kernels
+        # once a layer a micro-batch
+        n_attn = cfg.n_layers * tcfg.gas * steps
+        if (launches["flash_attention"],
+                launches["flash_attention_bwd"]) != (n_attn, n_attn):
+            fail(f"flash_attention launched {launches['flash_attention']} "
+                 f"forward and {launches['flash_attention_bwd']} backward "
+                 f"times over {steps} steps; expected {n_attn} each, n_layers"
+                 f" x gas x steps")
 
         # ---- phase 5: a fresh trainer restores the latest step
         live, position = tr.state, tr.data.position
@@ -2866,36 +3004,47 @@ def _ep_rank(rank, device: str):
 
 def _op_cost_on_card(device, times):
     """Phase 13 (c), second half: ``op_cost`` around one real bf16 forward
-    of (a)'s model on the card (no kernel: every product is an aten op)
-    and around the same forward on meta tensors; the two flop counts
-    must be equal. A warm forward outside the counter gives the achieved
-    rate."""
+    of (a)'s model on the card (no kernel: every product is an aten op,
+    the attention ``layers.attention`` through the hook, where the card
+    would take the flash-attention kernel) and around the same forward on
+    meta tensors; the two flop counts must be equal. A warm forward
+    outside the counter gives the achieved rate."""
     import dataclasses
+    from functools import partial
 
     import torch
     from repro_torch.configs import get_paper_config
     from repro_torch.launch.op_cost import OpCost
+    from repro_torch.models import layers as ly
+    from repro_torch.models import transformer
     from repro_torch.models.registry import build_model, make_batch
     from repro_torch.tree import tree_map
 
+    def plain_attention(q, k, v, cap=None):
+        pos = torch.arange(q.shape[2], device=q.device)
+        return ly.attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), q_pos=pos, kv_pos=pos,
+                            cap=cap).transpose(1, 2)
+
     cfg = dataclasses.replace(get_paper_config("gpt3_1_8b_moe"),
                               n_layers=MOE_LAYERS)
-    model = build_model(cfg)
+    forward = partial(transformer.forward, cfg=cfg,
+                      attn_kernel=plain_attention)
     params = tree_map(lambda t: t.to(torch.bfloat16),
-                      model.init(0, device))
+                      build_model(cfg).init(0, device))
     batch = make_batch(cfg, BATCH, SEQ, seed=13, device=device)
     meta = tree_map(lambda t: torch.empty_like(t, device="meta"), params)
     meta_batch = {k: torch.empty_like(v, device="meta")
                   for k, v in batch.items()}
     with torch.inference_mode():
         with OpCost() as on_card:
-            model.forward(params, batch)
+            forward(params, batch=batch)
             torch.cuda.synchronize()
         with OpCost() as on_meta:
-            model.forward(meta, meta_batch)
+            forward(meta, batch=meta_batch)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        model.forward(params, batch)
+        forward(params, batch=batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     card, dry = on_card.aggregate(), on_meta.aggregate()
@@ -3332,7 +3481,8 @@ def sass_check():
     """Phase 2: the instructions of each flash_attention body in the SASS
     that ``cuobjdump`` reads from the built library. Fails unless every
     body does its products on the tensor cores (HMMA: bf16 in the bf16
-    body, TF32 in the f32 one); the FFMA count is printed beside them
+    body and the two backward kernels, TF32 in the f32 one); the FFMA
+    count is printed beside them
     (the softmax's exp2f and the f32 output's division use FFMA)."""
     import re
     from collections import Counter
@@ -3347,8 +3497,9 @@ def sass_check():
         capture_output=True, text=True, check=True).stdout
     for body in re.split(r"\n\s*Function : ", sass)[1:]:
         name = body.split("\n", 1)[0]
-        kernel = re.search(r"(flash_tc_kernel|flash_tf32_kernel)ILi(\d+)E",
-                           name)
+        kernel = re.search(r"(flash_tc_kernel|flash_tf32_kernel|"
+                           r"flash_bwd_dq_kernel|flash_bwd_dkv_kernel)"
+                           r"ILi(\d+)E", name)
         if kernel is None:
             continue
         ops = Counter(re.findall(
@@ -3400,6 +3551,8 @@ def main():
     from repro_torch.kernels import flash_attention as fa, ssd_scan
     smem = {f"flash_attention {dt} hd {hd}": fa.smem_bytes(hd, dt)
             for dt in (torch.bfloat16, torch.float32) for hd in fa.HEAD_DIMS}
+    smem.update({f"flash_attention backward hd {hd}": fa.bwd_smem_bytes(hd)
+                 for hd in fa.HEAD_DIMS})
     for shape in (SSD, SSD_ZAMBA2):
         smem[f"ssd_intra_chunk {shape} (C Bᵀ, per head)"] = \
             ssd_scan.smem_bytes(shape[2], shape[4], shape[5])
@@ -3430,12 +3583,14 @@ def main():
                   f"{e['internvl2']}", flush=True)
     entries.append(check_adam(device))
     torch.cuda.empty_cache()
+    entries.append(check_attention_grad(device))
+    torch.cuda.empty_cache()
     lap("1-3")
     launches, cfg, state, batch, extras, disk_peak = main_path(
         device, STEPS, BATCH, SEQ)
     lap("4-5")
     ms = {e["name"]: e["ms"] for e in entries}
-    launches["flash_attention"] = score_restored(
+    launches["flash_attention"] += score_restored(
         cfg, state, batch, ms["flash_attention"], entries[2]["f32_ms"])
     del batch
     torch.cuda.empty_cache()

@@ -10,7 +10,8 @@ batches, runs them twice to warm up and once under ``torch.profiler``,
 twice over: the whole train step, and the forward and backward alone
 (each micro-batch's loss and gradient, with neither the f32 sum nor
 Adam). Prints one JSON line: for each, the device milliseconds a step
-in all and by class (matmul, elementwise, reduce, adam_kernel, other)
+in all and by class (matmul, elementwise, reduce, adam_kernel,
+attention_kernels, other)
 and the 40 largest kernels. The step less the forward and backward is
 the chain from micro-batch gradients to the bf16 weights.
 """
@@ -30,7 +31,9 @@ sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 N_BATCHES = 4
 #: kernel classes by name, the first that matches
 CLASSES = (("matmul", r"nvjet|gemm|xmma|cutlass"),
-           ("adam_kernel", r"adam_kernel"), ("reduce", r"reduce_kernel"),
+           ("adam_kernel", r"adam_kernel"),
+           ("attention_kernels", r"flash_(tc|tf32|bwd_dq|bwd_dkv)_kernel"),
+           ("reduce", r"reduce_kernel"),
            ("elementwise", r"elementwise|[Cc]opy"))
 
 

@@ -22,8 +22,11 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 #: every CUDA source of the port, by library name
 NAMES = ("adam", "ckpt_pack", "flash_attention", "ssd_scan")
+#: ``-split-compile=0``: the optimizer's passes on all cores; the same SASS
+#: (flash_attention.cu on an H100 machine with CUDA 12.9: 25.7 s -> 13.6 s)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-split-compile=0",
+              "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _libs: dict = {}

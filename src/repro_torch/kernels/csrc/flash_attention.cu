@@ -87,6 +87,41 @@
 // body is the bf16 body's skeleton with B4's (ssd_scan.cu) 3xTF32
 // products; warpgroup MMA, TMA and warp specialisation would buy little
 // here for their complexity.
+//
+// The bf16 body writes each row's base-2 log-sum-exp m + log2 l (f32,
+// (B, H, Lq padded to 64), +inf past Lq) when the caller passes a pointer
+// for it, for the backward; without one it runs as before.
+//
+// Backward (flash_bwd_dq_kernel, flash_bwd_dkv_kernel): FlashAttention-2's
+// backward for causal or full attention in bf16, GQA, no window and no
+// soft-cap. It replaces no TPU kernel: the Pallas kernel is forward-only
+// and the reference leaves its training attention to XLA. Neither kernel
+// writes an (L x L) tensor: P = exp2(S scale log2 e - LSE) is recomputed
+// from the forward's log-sum-exp, and S, P, dP and dS live in the mma
+// accumulator layout, where (as P in the forward) two adjacent n8 tiles
+// are the A fragment of the next product. The dQ kernel (one block a (b,
+// h, 64-row q tile), K/V tiles up to the diagonal, as the forward) first
+// takes D = rowsum(dO o O) of its rows and writes it for the dK/dV
+// kernel (one block a (b, kv head, 64-key tile), over the group's query
+// heads and the q tiles at or below the diagonal, Q, dO, LSE and D in a
+// two-stage cp.async ring). Each recomputes S and dP = dO V^T itself, so
+// no sum crosses blocks: no atomics, and the same inputs give the same
+// bits. dV += bf16(P)^T dO rounds P to bf16, as the reference rounds its
+// probabilities before P V (layers.attention); dP is kept in f32 (the
+// reference rounds it to bf16). dK += dS^T Q and dQ += dS K take dS as a
+// bf16 pair hi + lo in two products (Q and K are exact in bf16): about
+// 2^-17 relative per element, where one bf16 product (2^-9) would be a
+// lower precision than the reference's f32 products; dQ and dK are
+// scaled once at the end. Tiles wholly above the diagonal are skipped,
+// exact as in the forward (their P is 0).
+// Bound at the train step's shape (gpt3_2_7b_tp4, (4, 8, 2048, 80)
+// causal): 67.1 M causal pairs x 7 products (S, dP, dV, and dK and dQ
+// twice each) x 160 FLOP = 75.2 GFLOP = 76 us at the bf16 tensor-core
+// rate, against 84 MB of q, k, v, o, dO, LSE, dq, dk and dv = 25 us:
+// products. So every product runs on the tensor cores, P and dS go from
+// register to product without a trip through shared memory, and the two
+// recomputed products (S and dP in both kernels, 9 in all for 7) are the
+// price of no atomics. wgmma and TMA are later work.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -107,6 +142,7 @@ struct Strides { long long b, h, l; };   // in elements; hd is contiguous
 
 struct Params {
   const void* q; const void* k; const void* v; void* o;
+  float* lse;            // (B, H, Lpad) base-2 log-sum-exp, or null
   Strides sq, sk, sv, so;
   int rep, Lq, Lk;
   float scale, cap;      // cap <= 0: no soft-cap
@@ -210,14 +246,14 @@ __device__ __forceinline__ void load_first(T* Qs, T* Ks, T* Vs,
 // ended tile kt - 1), then wait for tile kt (and, at kt 0, the Q tile);
 // returns tile kt's offset in Ks and Vs
 template <typename T, int HD>
-__device__ __forceinline__ int next_tile(T* Ks, T* Vs, const Heads<T>& x,
-                                         const Params& p, int kt, int n_kt,
-                                         int tid) {
+__device__ __forceinline__ int next_tile(T* Ks, T* Vs, const T* k, const T* v,
+                                         long long ldk, long long ldv, int Lk,
+                                         int kt, int n_kt, int tid) {
   constexpr int TILE = kBK * row_stride<T, HD>();
   if (kt + 1 < n_kt) {
     const int nxt = ((kt + 1) & 1) * TILE;
-    load_tile<T, HD>(Ks + nxt, x.k, p.sk.l, (kt + 1) * kBK, p.Lk, tid);
-    load_tile<T, HD>(Vs + nxt, x.v, p.sv.l, (kt + 1) * kBK, p.Lk, tid);
+    load_tile<T, HD>(Ks + nxt, k, ldk, (kt + 1) * kBK, Lk, tid);
+    load_tile<T, HD>(Vs + nxt, v, ldv, (kt + 1) * kBK, Lk, tid);
     cp_async_commit();
     cp_async_wait<1>();
   } else {
@@ -362,7 +398,8 @@ __global__ void __launch_bounds__(kThreads) flash_tc_kernel(const Params p) {
   uint32_t qf[KS][4];
 
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int off = next_tile<bf16, HD>(Ks, Vs, x, p, kt, n_kt, tid);
+    const int off = next_tile<bf16, HD>(Ks, Vs, x.k, x.v, p.sk.l, p.sv.l,
+                                           p.Lk, kt, n_kt, tid);
     if (kt == 0) {
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks)
@@ -413,6 +450,12 @@ __global__ void __launch_bounds__(kThreads) flash_tc_kernel(const Params p) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + warp * 16 + g + 8 * r;
+    // each row's base-2 log-sum-exp for the backward, +inf on the rows
+    // of the last tile past Lq (the row's four threads hold the same m, l)
+    if (p.lse != nullptr && t == 0)
+      p.lse[(static_cast<long long>(blockIdx.z) * gridDim.y + blockIdx.y) *
+                (gridDim.x * kBQ) + row] =
+          row < p.Lq ? m[r] + log2f(fmaxf(l[r], 1e-30f)) : INFINITY;
     if (row >= p.Lq) continue;
     // one reciprocal per row: within an f32 ulp of the division, far
     // below the bf16 output's rounding
@@ -486,7 +529,8 @@ __global__ void __launch_bounds__(kThreads)
   zero(acl);
 
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int off = next_tile<float, HD>(Ks, Vs, x, p, kt, n_kt, tid);
+    const int off = next_tile<float, HD>(Ks, Vs, x.k, x.v, p.sk.l, p.sv.l,
+                                           p.Lk, kt, n_kt, tid);
     const float* Kt = Ks + off;
     const float* Vt = Vs + off;
 
@@ -560,28 +604,399 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename Kernel>
-int launch(Kernel kernel, size_t smem, const Params& p, int B, int H,
+// ---------------------------------------------------- bf16 backward bodies
+struct BwdParams {
+  const bf16* q; const bf16* k; const bf16* v; const bf16* o;
+  const bf16* dout;
+  const float* lse;    // (B, H, Lpad): the forward's base-2 log-sum-exp
+  float* delta;        // (B, H, Lpad): rowsum(dO o O), the dQ kernel's
+  bf16* dq; bf16* dk; bf16* dv;
+  Strides sq, sk, sv, so, sdo, sdq, sdk, sdv;
+  int H, rep, Lq, Lk, Lpad;
+  float scale;
+  int causal;
+};
+
+// Shared memory of either backward body: six 64-row tiles (dQ: Q, dO and
+// two stages of K and V; dK/dV: K, V and two stages of Q and dO), then
+// 4 x 64 floats (dQ: its rows' LSE and D; dK/dV: two stages of the q
+// tile's LSE and D)
+template <int HD>
+__host__ __device__ constexpr size_t bwd_smem_bytes() {
+  return sizeof(bf16) * static_cast<size_t>(row_stride<bf16, HD>()) * 6 *
+             kBQ + sizeof(float) * 4 * kBQ;
+}
+
+// the A fragment of k16 step kk (16 rows x 16 columns) from the
+// accumulator tiles 2kk and 2kk + 1 of x, as bf16 hi + lo: each value
+// within 2^-17 relative of hi + lo (x - hi is exact in f32)
+template <int N>
+__device__ __forceinline__ void a_split(const float (&x)[N][4], int kk,
+                                        uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float a = x[2 * kk + (i >> 1)][2 * (i & 1)];
+    const float b = x[2 * kk + (i >> 1)][2 * (i & 1) + 1];
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    const float2 hf = __bfloat1622float2(h);
+    hi[i] = *reinterpret_cast<const uint32_t*>(&h);
+    lo[i] = pack_bf16(a - hf.x, b - hf.y);
+  }
+}
+
+// dQ, and D for the dK/dV kernel. One block a (b, h, 64-row q tile),
+// each warp 16 rows; loops over the K/V tiles up to the diagonal as the
+// forward does. D = rowsum(dO o O) of the tile's rows first, straight
+// from device memory (two threads a row), while the Q, dO and first K/V
+// tiles arrive. Per key tile: S = Q K^T and dP = dO V^T (bf16 in, f32
+// accumulate), P = exp2(S scale log2 e - LSE), dS = P o (dP - D), dQ +=
+// dS K with dS as bf16 hi + lo; dQ times the scale at the end.
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dq_kernel(const BwdParams p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int RS = row_stride<bf16, HD>();
+  constexpr int KS = HD / 16;      // k16 steps over the head dim
+  constexpr int NO = HD / 8;       // n8 tiles of dQ
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);             // [kBQ][RS]
+  bf16* dOs = Qs + kBQ * RS;                                 // [kBQ][RS]
+  bf16* Ks = dOs + kBQ * RS;                                 // [2][kBK][RS]
+  bf16* Vs = Ks + 2 * kBK * RS;                              // [2][kBK][RS]
+  float* sL = reinterpret_cast<float*>(Vs + 2 * kBK * RS);  // [kBQ]
+  float* sD = sL + kBQ;                                      // [kBQ]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;   // fragment row, column pair
+  const int w0 = warp * 16;                // the warp's rows
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int b = blockIdx.z, h = blockIdx.y, kvh = h / p.rep;
+  const long long bh = (static_cast<long long>(b) * p.H + h) * p.Lpad;
+  const bf16* q = p.q + b * p.sq.b + h * p.sq.h;
+  const bf16* o = p.o + b * p.so.b + h * p.so.h;
+  const bf16* dout = p.dout + b * p.sdo.b + h * p.sdo.h;
+  const bf16* k = p.k + b * p.sk.b + kvh * p.sk.h;
+  const bf16* v = p.v + b * p.sv.b + kvh * p.sv.h;
+  const int n_all = (p.Lk + kBK - 1) / kBK;
+  const int n_kt = p.causal
+      ? min(n_all, (min(q0 + kBQ, p.Lq) - 1) / kBK + 1) : n_all;
+  load_tile<bf16, HD>(Qs, q, p.sq.l, q0, p.Lq, tid);
+  load_tile<bf16, HD>(dOs, dout, p.sdo.l, q0, p.Lq, tid);
+  load_tile<bf16, HD>(Ks, k, p.sk.l, 0, p.Lk, tid);
+  load_tile<bf16, HD>(Vs, v, p.sv.l, 0, p.Lk, tid);
+  cp_async_commit();
+  {
+    const int r = tid >> 1, half = tid & 1, row = q0 + r;
+    float d = 0.f;
+    if (row < p.Lq) {
+      const bf16* x = dout + row * p.sdo.l + half * (HD / 2);
+      const bf16* y = o + row * p.so.l + half * (HD / 2);
+#pragma unroll
+      for (int c = 0; c < HD / 16; ++c) {      // 8 elements at a time
+        const uint4 xa = *reinterpret_cast<const uint4*>(x + 8 * c);
+        const uint4 ya = *reinterpret_cast<const uint4*>(y + 8 * c);
+        const __nv_bfloat162* x2 =
+            reinterpret_cast<const __nv_bfloat162*>(&xa);
+        const __nv_bfloat162* y2 =
+            reinterpret_cast<const __nv_bfloat162*>(&ya);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 xf = __bfloat1622float2(x2[e]);
+          const float2 yf = __bfloat1622float2(y2[e]);
+          d = fmaf(xf.x, yf.x, d);
+          d = fmaf(xf.y, yf.y, d);
+        }
+      }
+    }
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    if (half == 0) {
+      sD[r] = d;
+      sL[r] = row < p.Lq ? p.lse[bh + row] : INFINITY;
+      p.delta[bh + row] = d;
+    }
+  }
+
+  const float scale2 = p.scale * kLog2e;
+  float lse[2], dd[2], acc[NO][4];   // rows g and g + 8 of the warp's 16
+  zero(acc);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int off = next_tile<bf16, HD>(Ks, Vs, k, v, p.sk.l, p.sv.l, p.Lk,
+                                        kt, n_kt, tid);
+    if (kt == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        lse[r] = sL[w0 + g + 8 * r];
+        dd[r] = sD[w0 + g + 8 * r];
+      }
+    }
+    const bf16* Kt = Ks + off;
+    const bf16* Vt = Vs + off;
+    const int k0 = kt * kBK;
+
+    // S = Q K^T, dP = dO V^T: n8 tile j holds keys 8j .. 8j + 7
+    float s[8][4], dp[8][4];
+    zero(s);
+    zero(dp);
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t qa[4], oa[4];
+      ldsm_x4(qa, Qs + (w0 + (lane & 15)) * RS + ks * 16 + (lane >> 4) * 8);
+      ldsm_x4(oa, dOs + (w0 + (lane & 15)) * RS + ks * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {   // key tiles 2np and 2np + 1
+        const int ofs = (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * RS +
+                        ks * 16 + ((lane >> 3) & 1) * 8;
+        uint32_t kb[4], vb[4];
+        ldsm_x4(kb, Kt + ofs);
+        ldsm_x4(vb, Vt + ofs);
+        mma_bf16(s[2 * np], qa, kb[0], kb[1]);
+        mma_bf16(s[2 * np + 1], qa, kb[2], kb[3]);
+        mma_bf16(dp[2 * np], oa, vb[0], vb[1]);
+        mma_bf16(dp[2 * np + 1], oa, vb[2], vb[3]);
+      }
+    }
+    // dS = P o (dP - D) into s; P is 0 above the diagonal and past Lk
+    const bool edge = (p.causal && k0 + kBK - 1 > q0 + w0) || k0 + kBK > p.Lk;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float pv = exp2f(s[j][e] * scale2 - lse[r]);
+        if (edge) {
+          const int qpos = q0 + w0 + g + 8 * r;
+          const int kpos = k0 + 8 * j + 2 * t + (e & 1);
+          if (kpos >= p.Lk || (p.causal && qpos < kpos)) pv = 0.f;
+        }
+        s[j][e] = pv * (dp[j][e] - dd[r]);
+      }
+    // dQ += dS K: dS's n8 tiles 2kk, 2kk + 1 are the A fragment of k16
+    // step kk (hi and lo), K's fragment read by ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t ah[4], al[4];
+      a_split(s, kk, ah, al);
+#pragma unroll
+      for (int d2 = 0; d2 < HD / 16; ++d2) {   // dQ tiles 2d2, 2d2 + 1
+        uint32_t kb[4];
+        ldsm_x4_trans(kb, Kt + (kk * 16 + (lane & 7) +
+                                ((lane >> 3) & 1) * 8) * RS +
+                              d2 * 16 + (lane >> 4) * 8);
+        mma_bf16(acc[2 * d2], ah, kb[0], kb[1]);
+        mma_bf16(acc[2 * d2], al, kb[0], kb[1]);
+        mma_bf16(acc[2 * d2 + 1], ah, kb[2], kb[3]);
+        mma_bf16(acc[2 * d2 + 1], al, kb[2], kb[3]);
+      }
+    }
+    __syncthreads();               // this stage is read: free for kt + 2
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + w0 + g + 8 * r;
+    if (row >= p.Lq) continue;
+    bf16* out = p.dq + b * p.sdq.b + h * p.sdq.h + row * p.sdq.l + 2 * t;
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) = __floats2bfloat162_rn(
+          acc[j][2 * r] * p.scale, acc[j][2 * r + 1] * p.scale);
+  }
+}
+
+// dK and dV. One block a (b, kv head, 64-key tile), each warp 16 keys;
+// K and V stay in shared memory. Loops over the group's query heads and,
+// for each, the q tiles at or below the diagonal (causal: from the tile
+// of the block's first key), in a two-stage cp.async ring of Q, dO and
+// the q tile's LSE and D. Per q tile, in two halves of 32 rows: S^T = K
+// Q^T and dP^T = V dO^T, P^T = exp2(S^T scale log2 e - LSE), dV +=
+// bf16(P^T) dO, dS^T = P^T o (dP^T - D), dK += dS^T Q with dS^T as bf16
+// hi + lo; dK times the scale at the end.
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dkv_kernel(const BwdParams p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int RS = row_stride<bf16, HD>();
+  constexpr int KS = HD / 16;      // k16 steps over the head dim
+  constexpr int NO = HD / 8;       // n8 tiles of dK and dV
+  constexpr int TILE = kBQ * RS;
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);             // [kBK][RS]
+  bf16* Vs = Ks + kBK * RS;                                  // [kBK][RS]
+  bf16* Qs = Vs + kBK * RS;                                  // [2][kBQ][RS]
+  bf16* dOs = Qs + 2 * TILE;                                 // [2][kBQ][RS]
+  float* sL = reinterpret_cast<float*>(dOs + 2 * TILE);     // [2][kBQ]
+  float* sD = sL + 2 * kBQ;                                  // [2][kBQ]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;   // fragment row, column pair
+  const int w0 = warp * 16;                // the warp's keys
+  // causal: the first key tiles see the most q tiles, and start first
+  const int k0 = blockIdx.x * kBK;
+  const int b = blockIdx.z, kvh = blockIdx.y;
+  const bf16* k = p.k + b * p.sk.b + kvh * p.sk.h;
+  const bf16* v = p.v + b * p.sv.b + kvh * p.sv.h;
+  const int n_qt = (p.Lq + kBQ - 1) / kBQ;
+  // causal: q tiles wholly before key k0 see none of the tile's keys
+  const int qt0 = p.causal ? min(k0 / kBQ, n_qt) : 0;
+  const int per_head = n_qt - qt0, n_it = per_head * p.rep;
+
+  // iteration i: query head kvh rep + i / per_head, q tile qt0 + i %
+  // per_head, into stage i & 1
+  auto load_it = [&](int i) {
+    const int h = kvh * p.rep + i / per_head;
+    const int q0 = (qt0 + i % per_head) * kBQ, st = i & 1;
+    load_tile<bf16, HD>(Qs + st * TILE, p.q + b * p.sq.b + h * p.sq.h,
+                        p.sq.l, q0, p.Lq, tid);
+    load_tile<bf16, HD>(dOs + st * TILE, p.dout + b * p.sdo.b + h * p.sdo.h,
+                        p.sdo.l, q0, p.Lq, tid);
+    const long long at = (static_cast<long long>(b) * p.H + h) * p.Lpad + q0;
+    if (tid < 16)
+      cp_async16(sL + st * kBQ + 4 * tid, p.lse + at + 4 * tid);
+    else if (tid < 32)
+      cp_async16(sD + st * kBQ + 4 * (tid - 16),
+                 p.delta + at + 4 * (tid - 16));
+  };
+  if (n_it > 0) {
+    load_tile<bf16, HD>(Ks, k, p.sk.l, k0, p.Lk, tid);
+    load_tile<bf16, HD>(Vs, v, p.sv.l, k0, p.Lk, tid);
+    load_it(0);
+  }
+  cp_async_commit();
+
+  const float scale2 = p.scale * kLog2e;
+  float dk[NO][4], dv[NO][4];   // keys g and g + 8 of the warp's 16
+  zero(dk);
+  zero(dv);
+  for (int i = 0; i < n_it; ++i) {
+    if (i + 1 < n_it) {           // stage (i + 1) & 1 was freed by i - 1
+      load_it(i + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int st = i & 1, q0 = (qt0 + i % per_head) * kBQ;
+    const bf16* Qt = Qs + st * TILE;
+    const bf16* dOt = dOs + st * TILE;
+    const float* L = sL + st * kBQ;
+    const float* D = sD + st * kBQ;
+#pragma unroll
+    for (int c0 = 0; c0 < kBQ; c0 += 32) {   // rows c0 .. c0 + 31 of the tile
+      // S^T = K Q^T, dP^T = V dO^T: n8 tile j holds q rows c0 + 8j ..
+      float s[4][4], dp[4][4];
+      zero(s);
+      zero(dp);
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t ka[4], va[4];
+        ldsm_x4(ka, Ks + (w0 + (lane & 15)) * RS + ks * 16 + (lane >> 4) * 8);
+        ldsm_x4(va, Vs + (w0 + (lane & 15)) * RS + ks * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {   // q tiles 2np and 2np + 1
+          const int ofs = (c0 + np * 16 + (lane & 7) + ((lane >> 4) << 3)) *
+                              RS + ks * 16 + ((lane >> 3) & 1) * 8;
+          uint32_t qb[4], ob[4];
+          ldsm_x4(qb, Qt + ofs);
+          ldsm_x4(ob, dOt + ofs);
+          mma_bf16(s[2 * np], ka, qb[0], qb[1]);
+          mma_bf16(s[2 * np + 1], ka, qb[2], qb[3]);
+          mma_bf16(dp[2 * np], va, ob[0], ob[1]);
+          mma_bf16(dp[2 * np + 1], va, ob[2], ob[3]);
+        }
+      }
+      // P^T into s (0 above the diagonal and past Lq), dS^T into dp
+      const bool edge = (p.causal && q0 + c0 < k0 + w0 + 15) ||
+                        q0 + c0 + 32 > p.Lq;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = c0 + 8 * j + 2 * t + (e & 1);
+          float pv = exp2f(s[j][e] * scale2 - L[c]);
+          if (edge) {
+            const int qpos = q0 + c, kpos = k0 + w0 + g + 8 * (e >> 1);
+            if (qpos >= p.Lq || (p.causal && qpos < kpos)) pv = 0.f;
+          }
+          s[j][e] = pv;
+          dp[j][e] = pv * (dp[j][e] - D[c]);
+        }
+      // dV += bf16(P^T) dO and dK += dS^T Q (hi and lo): the n8 tiles 2kk,
+      // 2kk + 1 are the A fragment of k16 step kk, dO's and Q's fragments
+      // read by ldmatrix.trans
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                               pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+        uint32_t ah[4], al[4];
+        a_split(dp, kk, ah, al);
+#pragma unroll
+        for (int d2 = 0; d2 < HD / 16; ++d2) {   // tiles 2d2, 2d2 + 1
+          const int ofs = (c0 + kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                              RS + d2 * 16 + (lane >> 4) * 8;
+          uint32_t ob[4], qb[4];
+          ldsm_x4_trans(ob, dOt + ofs);
+          ldsm_x4_trans(qb, Qt + ofs);
+          mma_bf16(dv[2 * d2], a, ob[0], ob[1]);
+          mma_bf16(dv[2 * d2 + 1], a, ob[2], ob[3]);
+          mma_bf16(dk[2 * d2], ah, qb[0], qb[1]);
+          mma_bf16(dk[2 * d2], al, qb[0], qb[1]);
+          mma_bf16(dk[2 * d2 + 1], ah, qb[2], qb[3]);
+          mma_bf16(dk[2 * d2 + 1], al, qb[2], qb[3]);
+        }
+      }
+    }
+    __syncthreads();               // this stage is read: free for i + 2
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + w0 + g + 8 * r;
+    if (key >= p.Lk) continue;
+    bf16* outk = p.dk + b * p.sdk.b + kvh * p.sdk.h + key * p.sdk.l + 2 * t;
+    bf16* outv = p.dv + b * p.sdv.b + kvh * p.sdv.h + key * p.sdv.l + 2 * t;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(outk + 8 * j) = __floats2bfloat162_rn(
+          dk[j][2 * r] * p.scale, dk[j][2 * r + 1] * p.scale);
+      *reinterpret_cast<__nv_bfloat162*>(outv + 8 * j) =
+          __floats2bfloat162_rn(dv[j][2 * r], dv[j][2 * r + 1]);
+    }
+  }
+}
+
+template <typename Kernel, typename P>
+int launch(Kernel kernel, size_t smem, dim3 grid, const P& p,
            cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((p.Lq + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int HD>
 int launch_hd(int dtype, const Params& p, int B, int H, cudaStream_t s) {
+  const dim3 grid((p.Lq + kBQ - 1) / kBQ, H, B);
   switch (dtype) {
     case kF32:
-      return launch(flash_tf32_kernel<HD>, smem_bytes<float, HD>(), p, B, H,
+      return launch(flash_tf32_kernel<HD>, smem_bytes<float, HD>(), grid, p,
                     s);
     case kBF16:
-      return launch(flash_tc_kernel<HD>, smem_bytes<bf16, HD>(), p, B, H, s);
+      return launch(flash_tc_kernel<HD>, smem_bytes<bf16, HD>(), grid, p, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the dQ kernel (which writes D), then the dK/dV kernel, on one stream
+template <int HD>
+int launch_bwd_hd(const BwdParams& p, int B, int KV, cudaStream_t s) {
+  const int e = launch(flash_bwd_dq_kernel<HD>, bwd_smem_bytes<HD>(),
+                       dim3(p.Lpad / kBQ, p.H, B), p, s);
+  if (e != 0) return e;
+  return launch(flash_bwd_dkv_kernel<HD>, bwd_smem_bytes<HD>(),
+                dim3((p.Lk + kBK - 1) / kBK, KV, B), p, s);
 }
 
 template <int HD>
@@ -598,20 +1013,22 @@ long long smem_hd(int dtype) {
 // C entry point (bound with ctypes). strides: 12 element strides, (b, h,
 // l) of q, k, v and out in that order; the last dimension of each must be
 // contiguous and every row 16-byte aligned (the wrapper checks). hd: 64,
-// 80, 96 or 128. window < 0: none; cap <= 0: none. Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for
-// arguments the kernel does not take.
+// 80, 96 or 128. window < 0: none; cap <= 0: none. lse: null, or (bf16
+// only) (B, H, ceil(Lq / 64) * 64) f32 for each row's base-2 log-sum-exp
+// (+inf past Lq). Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for arguments the kernel does not take.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o,
                                       const long long* strides, int B, int H,
                                       int KV, int Lq, int Lk, int hd,
                                       int dtype, int causal, int window,
-                                      float cap, float scale, void* stream) {
+                                      float cap, float scale, float* lse,
+                                      void* stream) {
   if (B <= 0 || B > 65535 || H <= 0 || H > 65535 || KV <= 0 || H % KV ||
-      Lq <= 0 || Lk <= 0)
+      Lq <= 0 || Lk <= 0 || (lse != nullptr && dtype != kBF16))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
-  p.q = q; p.k = k; p.v = v; p.o = o;
+  p.q = q; p.k = k; p.v = v; p.o = o; p.lse = lse;
   p.sq = {strides[0], strides[1], strides[2]};
   p.sk = {strides[3], strides[4], strides[5]};
   p.sv = {strides[6], strides[7], strides[8]};
@@ -636,6 +1053,57 @@ extern "C" long long flash_attention_smem_bytes(int hd, int dtype) {
     case 80: return smem_hd<80>(dtype);
     case 96: return smem_hd<96>(dtype);
     case 128: return smem_hd<128>(dtype);
+  }
+  return -1;
+}
+
+// C entry point of the backward (bf16 only, no window, no soft-cap).
+// strides: 24 element strides, (b, h, l) of q, k, v, o, dout, dq, dk and
+// dv in that order, under the forward's rules. lse: the forward's, (B, H,
+// Lpad) with Lpad = ceil(Lq / 64) * 64; delta: scratch of the same shape.
+// dq, dk, dv take q's, k's and v's shapes. Returns cudaGetLastError()
+// after the launches, or cudaErrorInvalidValue for arguments the kernels
+// do not take.
+extern "C" int flash_attention_bwd_launch(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const float* lse, float* delta, void* dq, void* dk,
+    void* dv, const long long* strides, int B, int H, int KV, int Lq, int Lk,
+    int hd, int causal, float scale, void* stream) {
+  if (B <= 0 || B > 65535 || H <= 0 || H > 65535 || KV <= 0 || H % KV ||
+      Lq <= 0 || Lk <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  BwdParams p;
+  p.q = static_cast<const bf16*>(q); p.k = static_cast<const bf16*>(k);
+  p.v = static_cast<const bf16*>(v); p.o = static_cast<const bf16*>(o);
+  p.dout = static_cast<const bf16*>(dout);
+  p.lse = lse; p.delta = delta;
+  p.dq = static_cast<bf16*>(dq); p.dk = static_cast<bf16*>(dk);
+  p.dv = static_cast<bf16*>(dv);
+  Strides* ss[8] = {&p.sq, &p.sk, &p.sv, &p.so, &p.sdo, &p.sdq, &p.sdk,
+                    &p.sdv};
+  for (int i = 0; i < 8; ++i)
+    *ss[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  p.H = H; p.rep = H / KV; p.Lq = Lq; p.Lk = Lk;
+  p.Lpad = (Lq + kBQ - 1) / kBQ * kBQ;
+  p.scale = scale; p.causal = causal;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 64: return launch_bwd_hd<64>(p, B, KV, s);
+    case 80: return launch_bwd_hd<80>(p, B, KV, s);
+    case 96: return launch_bwd_hd<96>(p, B, KV, s);
+    case 128: return launch_bwd_hd<128>(p, B, KV, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Dynamic shared memory per block of either backward body at hd, in
+// bytes; -1 for a head dim the kernels do not take.
+extern "C" long long flash_attention_bwd_smem_bytes(int hd) {
+  switch (hd) {
+    case 64: return static_cast<long long>(bwd_smem_bytes<64>());
+    case 80: return static_cast<long long>(bwd_smem_bytes<80>());
+    case 96: return static_cast<long long>(bwd_smem_bytes<96>());
+    case 128: return static_cast<long long>(bwd_smem_bytes<128>());
   }
   return -1;
 }

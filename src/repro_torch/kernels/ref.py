@@ -10,6 +10,7 @@ import torch
 
 #: masked attention logits: -1e30, not -inf, as in the reference
 MASK_VALUE = -1e30
+LOG2E = 1.4426950408889634
 #: same-width integer views for the bitwise block compare
 _INTS = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 
@@ -54,12 +55,15 @@ def ckpt_pack_dirty_plain(x2d, prev2d, *, out_dtype=None, scale=1.0):
     return y, xf.abs().amax(dim=1), mask
 
 
-def flash_attention_plain(q, k, v, *, causal=True, window=None, cap=None):
+def flash_attention_plain(q, k, v, *, causal=True, window=None, cap=None,
+                          lse=False):
     """q (B, H, Lq, hd); k, v (B, KV, Lk, hd) -> (B, H, Lq, hd) in q's
     dtype, with the Pallas kernel's arithmetic: f32 scores scaled by
     1/sqrt(hd), masked logits at -1e30, p kept in f32 against an f32 v.
     A row with no valid key averages v over the Lk keys, as
-    ``repro.kernels.ref.flash_attention_ref`` does."""
+    ``repro.kernels.ref.flash_attention_ref`` does. With ``lse``, returns
+    (out, each row's base-2 log-sum-exp of the scaled, masked scores, f32
+    (B, H, Lq)): what the backward takes."""
     B, H, Lq, hd = q.shape
     KV, Lk = k.shape[1], k.shape[2]
     rep = H // KV
@@ -77,7 +81,45 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None, cap=None):
         mask &= qpos - kpos < window
     s = torch.where(mask, s, MASK_VALUE)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype)
+    return (out, torch.logsumexp(s, dim=-1) * LOG2E) if lse else out
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal=True):
+    """The backward kernels' arithmetic in plain PyTorch: (dq, dk, dv) in
+    the dtypes of q, k and v, from the forward's output and base-2
+    log-sum-exp (its first Lq rows: the kernel's are padded). S = Q Kᵀ in
+    f32 of the upcast inputs, P = exp2(S · scale · log2 e − LSE) (0 where
+    masked), dV = Pᵀ dO with P rounded to v's dtype first, dP = dO Vᵀ in
+    f32, D = rowsum(dO ∘ O), dS = P ∘ (dP − D); dQ = dS K and dK = dSᵀ Q
+    times the scale, with dS taken as a bf16 hi + lo pair for bf16 inputs
+    (the kernels' two tensor-core products; about 2^-17 relative per
+    element, where a single bf16 dS would be 2^-9). KV heads sum the
+    gradients of their group."""
+    B, H, Lq, hd = q.shape
+    KV, Lk = k.shape[1], k.shape[2]
+    rep = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    qf, dof = q.float(), dout.float()
+    kf = k.repeat_interleave(rep, dim=1).float()
+    vf = v.repeat_interleave(rep, dim=1).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf)
+    p = torch.exp2(s * (scale * LOG2E) - lse[..., :Lq, None])
+    if causal:
+        qpos = torch.arange(Lq, device=q.device)[:, None]
+        p = torch.where(qpos >= torch.arange(Lk, device=q.device), p, 0.0)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(v.dtype).float(), dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    ds = p * (dp - (dof * out.float()).sum(-1, keepdim=True))
+    if q.dtype == torch.bfloat16:
+        hi = ds.to(torch.bfloat16).float()
+        ds = hi + (ds - hi).to(torch.bfloat16).float()
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+
+    def group(x):            # (B, H, Lk, hd) -> (B, KV, Lk, hd)
+        return x.reshape(B, KV, rep, Lk, hd).sum(2)
+    return dq.to(q.dtype), group(dk).to(k.dtype), group(dv).to(v.dtype)
 
 
 def segsum(x):

@@ -12,7 +12,10 @@ KV, hd) of its global ones}. Prefill and decode write into the given
 cache IN PLACE and return it (the reference returns a new cache; its
 serving loop donates the old one, so XLA does the same). The
 ``attn_kernel`` hook takes the flash-attention kernel
-(``build_model(use_kernels=True)``); ``moe_kernel(p, h, cfg)`` replaces
+(``build_model(use_kernels=True)``); without it, a cacheless causal
+attention in bf16 on the card, with no window and no soft-cap, takes the
+same kernel and its backward (the train step's attention), and every
+other case the plain ``ly.attention``. ``moe_kernel(p, h, cfg)`` replaces
 the MoE layer, as in the reference (``sharding/moe_ep.py`` passes its
 expert-parallel layer). ``forward(remat=True)`` recomputes each block in
 the backward (``torch.utils.checkpoint``), where the reference applies
@@ -26,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import layers as ly
 
 #: the window of a global layer: unbounded, as the reference's 2**30
@@ -79,7 +83,10 @@ def _block(cfg, x, lp, pos, *, is_glob=True, cache_k=None, cache_v=None,
     ``cache_k`` is its latent cache). A windowed config gives a local
     layer (``is_glob`` false) its window and a global one 2**30.
     ``attn_kernel(q, k, v, cap=...)`` on (B, H, L, hd) tensors replaces
-    the attention under the reference's gate: no cache and no window."""
+    the attention under the reference's gate: no cache and no window.
+    Without it, ``fa.flash_attention`` (forward and backward kernels)
+    takes a cacheless attention where ``fa.kernel_takes`` (bf16 on the
+    card, no window, no soft-cap); anything else is ``ly.attention``."""
     h = ly.rmsnorm(x, lp["ln1"], cfg.norm_eps)
     if cfg.attn_kind == "mla":
         attn_out, _ = ly.mla_attention(
@@ -102,10 +109,11 @@ def _block(cfg, x, lp, pos, *, is_glob=True, cache_k=None, cache_v=None,
                                                  device=x.device),
                              window=window, cap=cfg.attn_softcap,
                              kv_valid_len=end)
-        elif attn_kernel is not None and window is None:
-            o = attn_kernel(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2),
-                            cap=cfg.attn_softcap).transpose(1, 2)
+        elif ((attn_kernel is not None and window is None)
+              or fa.kernel_takes(q, window, cfg.attn_softcap)):
+            o = (attn_kernel or fa.flash_attention)(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                cap=cfg.attn_softcap).transpose(1, 2)
         else:
             o = ly.attention(q, k, v, q_pos=pos, kv_pos=pos, window=window,
                              cap=cfg.attn_softcap)
