@@ -223,7 +223,9 @@ ATTN_VLM = (BATCH, 48, 8, 256 + SEQ, 128)
 ATTN_GRAD = {"gpt3_2_7b_tp4": (4, 8, 8, 2048, 80),
              "gpt3_1_3b_tp2": (4, 8, 8, 2048, 128),
              "internvl2_26b": ATTN_VLM,
-             "stablelm_1_6b": (BATCH, 32, 32, SEQ, 64)}
+             "stablelm_1_6b": (BATCH, 32, 32, SEQ, 64),
+             # MLA (B, H, KV, L, hd, hd_v): deepseek_v2_lite_ep8's micro-batch
+             "deepseek_v2_lite_ep8": (2, 16, 16, 4096, 192, 128)}
 #: gpt3_1_8b_moe's attention in phase 13 (a), 16 heads of 64: over the
 #: whole batch (one process, and each rank of the 1 x 4 mesh) and over
 #: one data shard (each rank of the 2 x 2 mesh)
@@ -677,8 +679,10 @@ def check_attention_grad(device) -> dict:
     products the backward needs per causal pair: S, dP, dV and dK and dQ
     each as two (dS as bf16 hi + lo), 7 x 2 hd FLOP at the bf16 rate,
     against q, k, v, o, dO and the log-sum-exp read and dq, dk, dv
-    written once. Returns the ``kernels`` entry at gpt3_2_7b_tp4's shape
-    (launches filled in by phase 4)."""
+    written once. A shape with a sixth number is MLA's: v, o and dO at
+    that head dim, S, dK and dQ over hd, dP and dV over it. Returns the
+    ``kernels`` entry at gpt3_2_7b_tp4's shape (launches filled in by
+    phase 4)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -698,11 +702,12 @@ def check_attention_grad(device) -> dict:
         return float((got - want).abs().max() / want.abs().max())
 
     entry, worst = None, 0.0
-    for name, (B, H, KV, L, hd) in ATTN_GRAD.items():
+    for name, (B, H, KV, L, hd, *rest) in ATTN_GRAD.items():
+        hdv = rest[0] if rest else hd
         q = torch.randn((B, L, H, hd), generator=gen, device=device)
-        k, v = (torch.randn((B, L, KV, hd), generator=gen, device=device)
-                for _ in range(2))
-        do = torch.randn((B, L, H, hd), generator=gen, device=device)
+        k = torch.randn((B, L, KV, hd), generator=gen, device=device)
+        v = torch.randn((B, L, KV, hdv), generator=gen, device=device)
+        do = torch.randn((B, L, H, hdv), generator=gen, device=device)
         q, k, v, do = (t.to(torch.bfloat16) for t in (q, k, v, do))
         views = [t.transpose(1, 2).detach().requires_grad_()
                  for t in (q, k, v)]
@@ -731,7 +736,8 @@ def check_attention_grad(device) -> dict:
         if max(shares.values()) > TOL_ATTN_BF16:
             fail(f"{name}: flash_attention backward beyond {TOL_ATTN_BF16} "
                  f"of the largest magnitude: {shares}")
-        print(f"  ok {name} (B, H, KV, L, hd) {(B, H, KV, L, hd)}: "
+        print(f"  ok {name} (B, H, KV, L, hd, hd_v) "
+              f"{(B, H, KV, L, hd, hdv)}: "
               f"|lse err| {err_lse:.2e}; largest |err| / max|ref|: "
               + ", ".join(f"{n} {v:.2e}" for n, v in shares.items()),
               flush=True)
@@ -740,8 +746,8 @@ def check_attention_grad(device) -> dict:
         sdpa = F.scaled_dot_product_attention(*sd, is_causal=True,
                                               enable_gqa=KV != H)
         pairs = B * H * L * (L + 1) // 2
-        flops = 7 * 2 * hd * pairs
-        n_bytes = 2 * hd * B * L * 4 * (H + KV) + 4 * B * H * L
+        flops = 2 * (5 * hd + 2 * hdv) * pairs
+        n_bytes = 2 * (hd + hdv) * B * L * 2 * (H + KV) + 4 * B * H * L
         bound_ms, bound_by = _bound(n_bytes, flops / BF16_FLOPS)
         t = {"ms": _cuda_ms(lambda: torch.autograd.grad(
                  out, views, dot, retain_graph=True)),
@@ -3553,6 +3559,11 @@ def main():
             for dt in (torch.bfloat16, torch.float32) for hd in fa.HEAD_DIMS}
     smem.update({f"flash_attention backward hd {hd}": fa.bwd_smem_bytes(hd)
                  for hd in fa.HEAD_DIMS})
+    for hd, hdv in fa.MLA_DIMS:
+        smem[f"flash_attention bf16 hd {hd} hd_v {hdv}"] = fa.smem_bytes(
+            hd, torch.bfloat16, hdv)
+        smem[f"flash_attention backward hd {hd} hd_v {hdv}"] = \
+            fa.bwd_smem_bytes(hd, hdv)
     for shape in (SSD, SSD_ZAMBA2):
         smem[f"ssd_intra_chunk {shape} (C Bᵀ, per head)"] = \
             ssd_scan.smem_bytes(shape[2], shape[4], shape[5])

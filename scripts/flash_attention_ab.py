@@ -142,7 +142,7 @@ def call(lib, q, k, v, causal=True, window=None, cap=None):
         s for t in (q, k, v, out) for s in t.stride()[:3]))
     rc = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-        B, H, k.shape[1], Lq, k.shape[2], hd, 0, int(causal),
+        B, H, k.shape[1], Lq, k.shape[2], hd, hd, 0, int(causal),
         -1 if window is None else window, 0.0 if cap is None else cap,
         1.0 / math.sqrt(hd), None, torch.cuda.current_stream().cuda_stream)
     if rc:

@@ -12,8 +12,12 @@ twice over: the whole train step, and the forward and backward alone
 Adam). Prints one JSON line: for each, the device milliseconds a step
 in all and by class (matmul, elementwise, reduce, adam_kernel,
 attention_kernels, other)
-and the 40 largest kernels. The step less the forward and backward is
-the chain from micro-batch gradients to the bf16 weights.
+and the 40 largest kernels, and by program span (``by_span_ms``): the
+device time of the kernels launched inside each span of
+``repro_torch.spans`` (``fwd``) and of the backward nodes of the
+operators it ran (``bwd``, matched by autograd sequence number). The
+step less the forward and backward is the chain from micro-batch
+gradients to the bf16 weights.
 """
 from __future__ import annotations
 
@@ -30,7 +34,8 @@ sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
 N_BATCHES = 4
 #: kernel classes by name, the first that matches
-CLASSES = (("matmul", r"nvjet|gemm|xmma|cutlass"),
+CLASSES = (("grouped_matmul", r"GroupProblemShape|[Gg]rouped"),
+           ("matmul", r"nvjet|gemm|xmma|cutlass"),
            ("adam_kernel", r"adam_kernel"),
            ("attention_kernels", r"flash_(tc|tf32|bwd_dq|bwd_dkv)_kernel"),
            ("reduce", r"reduce_kernel"),
@@ -41,17 +46,80 @@ def _class(name: str) -> str:
     return next((c for c, pat in CLASSES if re.search(pat, name)), "other")
 
 
+def _annotated_spans():
+    """``repro_torch.spans.span`` made to open a profiler range of its
+    name as well; returns the original, to put back."""
+    import contextlib
+    import torch
+    from repro_torch import spans
+    real = spans.span
+
+    @contextlib.contextmanager
+    def span(name, nbytes=0):
+        with torch.profiler.record_function(name), real(name, nbytes) as sp:
+            yield sp
+    spans.span = span
+    return real
+
+
+_NODE = re.compile(r"Backward\d+$")
+
+
+def _ancestor(e, pred):
+    while e is not None and not pred(e):
+        e = e.cpu_parent
+    return e
+
+
+def by_span(events, names, time=lambda e: e.device_time_total) -> dict:
+    """{span: {"fwd": t, "bwd": t}} over profiler ``events``: ``fwd`` the
+    ``time`` of each range named after a span; ``bwd`` that of the
+    backward nodes (``...Backward<n>``) that an operator inside such a
+    range made, the innermost such range. An operator records the
+    sequence number the next node takes, so a node's maker is the last
+    forward operator that recorded its number."""
+    out, owner, nodes = {}, {}, []
+    for e in events:
+        if e.name in names:
+            out.setdefault(e.name, {"fwd": 0.0, "bwd": 0.0})
+            out[e.name]["fwd"] += time(e)
+        if _NODE.search(e.name):
+            if not e.name.startswith("autograd::"):
+                nodes.append(e)
+            continue
+        if e.sequence_nr < 0 or _ancestor(
+                e, lambda a: _NODE.search(a.name)) is not None:
+            continue
+        span = _ancestor(e, lambda a: a.name in names)
+        t0 = e.time_range.start
+        if e.sequence_nr not in owner or t0 >= owner[e.sequence_nr][0]:
+            owner[e.sequence_nr] = (t0, span.name if span else None)
+    for e in nodes:
+        n = owner.get(e.sequence_nr, (0, None))[1]
+        if n is not None:
+            out[n]["bwd"] += time(e)
+    return out
+
+
 def _profile(fn, n_steps: int) -> dict:
     import torch
+    from repro_torch.spans import __doc__ as doc
+    names = set(re.findall(r"``([a-z_]+\.[a-z_0-9.]+)``", doc))
     fn()
     fn()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
+    real = _annotated_spans()
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+    finally:
+        from repro_torch import spans
+        spans.span = real
     by = defaultdict(float)
     for e in prof.profiler.kineto_results.events():
-        if e.device_type() == torch.autograd.DeviceType.CUDA:
+        if (e.device_type() == torch.autograd.DeviceType.CUDA
+                and e.name() not in names):
             by[e.name()] += e.duration_ns() / 1e6 / n_steps
     if not by:
         raise RuntimeError("the profiler recorded no device time")
@@ -59,8 +127,11 @@ def _profile(fn, n_steps: int) -> dict:
     for n, t in by.items():
         cls[_class(n)] += t
     top = sorted(by.items(), key=lambda kv: -kv[1])[:40]
+    spans_ms = {n: {k: round(v / 1e3 / n_steps, 4) for k, v in d.items()}
+                for n, d in by_span(prof.events(), names).items()}
     return {"total_ms": round(sum(by.values()), 4),
             "by_class_ms": {k: round(v, 4) for k, v in cls.items()},
+            "by_span_ms": spans_ms,
             "kernels_ms": [(n[:140], round(t, 4)) for n, t in top]}
 
 

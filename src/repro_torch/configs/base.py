@@ -26,13 +26,65 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class DeepSeekMoEConfig(MoEConfig):
+    """DeepSeekMoE's layer (arXiv:2401.06066; DeepSeek-V2's config keys):
+    fine-grained routed experts of their own width beside always-on
+    shared experts, after ``first_k_dense_replace`` dense layers of
+    ``ModelConfig.d_ff``. ``n_experts`` and ``top_k`` are the router's
+    width and experts per token; ``aux_loss_coef`` is the balance loss's
+    alpha. The gates are the router's probabilities at the top k, not
+    renormalised and not scaled, and the balance loss is per sequence:
+    DeepSeek-V2-Lite's ``norm_topk_prob`` false, ``routed_scaling_factor``
+    1 and ``seq_aux`` true, the only values the layer computes. A
+    subclass, so that the ``MoEConfig`` of every other config (and its
+    ``dataclasses.asdict``) stays as the reference's.
+
+    The layer runs dropless (``ModelConfig.moe_impl="dropless"``) over
+    the experts this chip holds, ``n_held_experts`` of them from
+    ``first_held_expert`` (0: all), as one rank of expert parallelism
+    holds them; the router still scores all ``n_experts``."""
+    moe_intermediate_size: int = 0   # each routed and shared expert's width
+    n_shared_experts: int = 0        # one SwiGLU of n x the expert width
+    first_k_dense_replace: int = 0   # leading dense layers
+    first_held_expert: int = 0
+    n_held_experts: int = 0          # 0: every routed expert
+
+    @property
+    def held(self) -> range:
+        """The routed experts this chip computes."""
+        return range(self.first_held_expert, self.first_held_expert
+                     + (self.n_held_experts or self.n_experts))
+
+
+@dataclass(frozen=True)
 class MLAConfig:
-    """Multi-head Latent Attention (DeepSeek-V2 / MiniCPM3 style)."""
-    q_lora_rank: int = 768
+    """Multi-head Latent Attention (DeepSeek-V2 / MiniCPM3 style);
+    ``q_lora_rank`` None: the query straight from the input (no
+    ``wq_a``/``q_norm``/``wq_b``, one ``wq``), as DeepSeek-V2-Lite."""
+    q_lora_rank: Optional[int] = 768
     kv_lora_rank: int = 256
     qk_nope_head_dim: int = 64
     qk_rope_head_dim: int = 32
     v_head_dim: int = 64
+
+
+@dataclass(frozen=True)
+class YarnMLAConfig(MLAConfig):
+    """MLA under the YaRN rotary scaling of DeepSeek-V2's released config
+    (``rope_scaling`` of type "yarn", arXiv:2309.00071; the fields are its
+    keys): the rotary frequencies blend from the plain ones to a
+    ``factor``-fold slower set between the dims that the correction
+    range of ``beta_fast`` and ``beta_slow`` rotations over
+    ``original_max_position_embeddings`` names, and the softmax scale
+    takes mscale(``mscale_all_dim``) squared. A subclass, so that the
+    ``MLAConfig`` of every other config (and its ``dataclasses.asdict``)
+    stays as the reference's."""
+    factor: float = 1.0
+    original_max_position_embeddings: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
 
 
 @dataclass(frozen=True)
@@ -122,7 +174,11 @@ class ModelConfig:
         if self.attn_kind == "mla":
             m = self.mla
             qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
-            p = d * m.q_lora_rank + m.q_lora_rank * self.n_heads * qk_dim
+            if m.q_lora_rank is None:
+                p = d * self.n_heads * qk_dim
+            else:
+                p = (d * m.q_lora_rank
+                     + m.q_lora_rank * self.n_heads * qk_dim)
             p += d * (m.kv_lora_rank + m.qk_rope_head_dim)
             p += m.kv_lora_rank * self.n_heads * (m.qk_nope_head_dim + m.v_head_dim)
             p += self.n_heads * m.v_head_dim * d
@@ -162,6 +218,13 @@ class ModelConfig:
                 p += 2 * d                    # per-invocation norms
             return p
         p = self._attn_params() + 2 * d       # attn + 2 norms
+        if isinstance(self.moe, DeepSeekMoEConfig):
+            m = self.moe
+            if i < m.first_k_dense_replace:
+                return p + self._mlp_params(self.d_ff)
+            ff = m.moe_intermediate_size
+            return (p + len(m.held) * self._mlp_params(ff) + d * m.n_experts
+                    + self._mlp_params(m.n_shared_experts * ff))
         if self.moe is not None:
             p += self.moe.n_experts * self._mlp_params(self.d_ff)
             p += d * self.moe.n_experts       # router
@@ -179,6 +242,12 @@ class ModelConfig:
         """Activated params per token (MoE: top_k of n_experts)."""
         if self.moe is None:
             return self.param_count()
+        if isinstance(self.moe, DeepSeekMoEConfig):
+            m = self.moe
+            dead = ((len(m.held) - m.top_k)
+                    * self._mlp_params(m.moe_intermediate_size))
+            return self.param_count() - (
+                self.n_layers - m.first_k_dense_replace) * max(dead, 0)
         dead = (self.moe.n_experts - self.moe.top_k) * self._mlp_params(self.d_ff)
         return self.param_count() - self.n_layers * dead
 
@@ -238,7 +307,8 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     # keep head structure but shrink
     if cfg.attn_kind == "mla":
         changes.update(n_heads=4, n_kv_heads=4,
-                       mla=MLAConfig(q_lora_rank=64, kv_lora_rank=32,
+                       mla=MLAConfig(q_lora_rank=64 if cfg.mla.q_lora_rank
+                                     else None, kv_lora_rank=32,
                                      qk_nope_head_dim=16, qk_rope_head_dim=8,
                                      v_head_dim=16))
     elif cfg.n_heads:
@@ -250,6 +320,11 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         changes["moe"] = replace(cfg.moe, n_experts=4,
                                  top_k=min(cfg.moe.top_k, 2),
                                  dense_ff=min(cfg.moe.dense_ff, 256))
+        if isinstance(cfg.moe, DeepSeekMoEConfig):
+            changes["moe"] = replace(
+                changes["moe"], first_held_expert=0, n_held_experts=0,
+                moe_intermediate_size=min(cfg.moe.moe_intermediate_size,
+                                          128))
     if cfg.ssm is not None:
         changes["ssm"] = replace(cfg.ssm, d_state=16, head_dim=32, chunk=16)
     if cfg.window_size:

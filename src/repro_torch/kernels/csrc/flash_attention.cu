@@ -122,6 +122,16 @@
 // register to product without a trip through shared memory, and the two
 // recomputed products (S and dP in both kernels, 9 in all for 7) are the
 // price of no atomics. wgmma and TMA are later work.
+//
+// MLA (DeepSeek-V2's training attention): q and k at head dim 192 (nope
+// 128 + rope 64), v, the output and dO at 128; bf16 only, forward and
+// backward (flash_tc_kernel<192, 128>, flash_bwd_dq_kernel<192, 128>,
+// flash_bwd_dkv_kernel<192, 128>), scores scaled by 1 / sqrt(192). The V
+// and dO tiles keep v's own row stride (128 + 8) and the products over
+// v's head dim (P V, dP = dO V^T, dV) stop at 128: padding v to 192 would
+// add half again to those three products and to their tiles. Shared
+// memory: forward 111,616 B a block (two blocks an SM), backward 130,048
+// B (one). The dK/dV kernel holds dK at 192 and dV at 128 in registers.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -158,11 +168,12 @@ __host__ __device__ constexpr int row_stride() {
   return HD + 16 / static_cast<int>(sizeof(T));
 }
 
-// the Q tile, then two stages of K and V
-template <typename T, int HD>
+// the Q tile, then two stages of K and V (V's rows at HDV)
+template <typename T, int HD, int HDV = HD>
 __host__ __device__ constexpr size_t smem_bytes() {
-  return sizeof(T) * static_cast<size_t>(row_stride<T, HD>()) *
-         (kBQ + 4 * kBK);
+  return sizeof(T) * (static_cast<size_t>(row_stride<T, HD>()) *
+                          (kBQ + 2 * kBK) +
+                      static_cast<size_t>(row_stride<T, HDV>()) * 2 * kBK);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -232,35 +243,37 @@ __device__ __forceinline__ int n_key_tiles(const Params& p, int q0) {
 }
 
 // the ring's first fill: the Q tile and K/V tile 0 into stage 0
-template <typename T, int HD>
+template <typename T, int HD, int HDV>
 __device__ __forceinline__ void load_first(T* Qs, T* Ks, T* Vs,
                                            const Heads<T>& x, const Params& p,
                                            int q0, int tid) {
   load_tile<T, HD>(Qs, x.q, p.sq.l, q0, p.Lq, tid);
   load_tile<T, HD>(Ks, x.k, p.sk.l, 0, p.Lk, tid);
-  load_tile<T, HD>(Vs, x.v, p.sv.l, 0, p.Lk, tid);
+  load_tile<T, HDV>(Vs, x.v, p.sv.l, 0, p.Lk, tid);
   cp_async_commit();
 }
 
 // K/V tile kt + 1 into stage (kt + 1) & 1 (freed by the barrier that
 // ended tile kt - 1), then wait for tile kt (and, at kt 0, the Q tile);
-// returns tile kt's offset in Ks and Vs
-template <typename T, int HD>
+// returns tile kt's stage: its K tile is at Ks + stage * kBK * row_stride
+// <HD>, its V tile at Vs + stage * kBK * row_stride<HDV>
+template <typename T, int HD, int HDV>
 __device__ __forceinline__ int next_tile(T* Ks, T* Vs, const T* k, const T* v,
                                          long long ldk, long long ldv, int Lk,
                                          int kt, int n_kt, int tid) {
-  constexpr int TILE = kBK * row_stride<T, HD>();
   if (kt + 1 < n_kt) {
-    const int nxt = ((kt + 1) & 1) * TILE;
-    load_tile<T, HD>(Ks + nxt, k, ldk, (kt + 1) * kBK, Lk, tid);
-    load_tile<T, HD>(Vs + nxt, v, ldv, (kt + 1) * kBK, Lk, tid);
+    const int nxt = (kt + 1) & 1;
+    load_tile<T, HD>(Ks + nxt * kBK * row_stride<T, HD>(), k, ldk,
+                     (kt + 1) * kBK, Lk, tid);
+    load_tile<T, HDV>(Vs + nxt * kBK * row_stride<T, HDV>(), v, ldv,
+                      (kt + 1) * kBK, Lk, tid);
     cp_async_commit();
     cp_async_wait<1>();
   } else {
     cp_async_wait<0>();
   }
   __syncthreads();
-  return (kt & 1) * TILE;
+  return kt & 1;
 }
 
 // Online softmax over one 64-key tile. s[j][2r + e] is the raw score of
@@ -375,22 +388,24 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-template <int HD>
+// HDV: v's head dim (MLA: 128 against q and k's 192), HD's otherwise
+template <int HD, int HDV = HD>
 __global__ void __launch_bounds__(kThreads) flash_tc_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int RS = row_stride<bf16, HD>();
+  constexpr int RSV = row_stride<bf16, HDV>();
   constexpr int KS = HD / 16;      // k16 steps of Q K^T
-  constexpr int NO = HD / 8;       // n8 tiles of the output
+  constexpr int NO = HDV / 8;      // n8 tiles of the output
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);   // [kBQ][RS]
   bf16* Ks = Qs + kBQ * RS;                       // [2][kBK][RS]
-  bf16* Vs = Ks + 2 * kBK * RS;                   // [2][kBK][RS]
+  bf16* Vs = Ks + 2 * kBK * RS;                   // [2][kBK][RSV]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;   // fragment row, column pair
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
   const Heads<bf16> x(p, blockIdx.z, blockIdx.y);
   const int n_kt = n_key_tiles(p, q0);
-  load_first<bf16, HD>(Qs, Ks, Vs, x, p, q0, tid);
+  load_first<bf16, HD, HDV>(Qs, Ks, Vs, x, p, q0, tid);
 
   // rows g and g + 8 of the warp's 16: running max, sum, accumulator
   float m[2] = {kMask, kMask}, l[2] = {0.f, 0.f}, alpha[2], acc[NO][4];
@@ -398,16 +413,16 @@ __global__ void __launch_bounds__(kThreads) flash_tc_kernel(const Params p) {
   uint32_t qf[KS][4];
 
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int off = next_tile<bf16, HD>(Ks, Vs, x.k, x.v, p.sk.l, p.sv.l,
-                                           p.Lk, kt, n_kt, tid);
+    const int st = next_tile<bf16, HD, HDV>(Ks, Vs, x.k, x.v, p.sk.l,
+                                            p.sv.l, p.Lk, kt, n_kt, tid);
     if (kt == 0) {
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks)
         ldsm_x4(qf[ks], Qs + (warp * 16 + (lane & 15)) * RS + ks * 16 +
                             (lane >> 4) * 8);
     }
-    const bf16* Kt = Ks + off;
-    const bf16* Vt = Vs + off;
+    const bf16* Kt = Ks + st * kBK * RS;
+    const bf16* Vt = Vs + st * kBK * RSV;
 
     // S = Q K^T: n8 tile j holds keys 8j .. 8j + 7 of the tile
     float s[8][4];
@@ -435,10 +450,10 @@ __global__ void __launch_bounds__(kThreads) flash_tc_kernel(const Params p) {
                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-      for (int dp = 0; dp < HD / 16; ++dp) {   // output tiles 2dp, 2dp + 1
+      for (int dp = 0; dp < HDV / 16; ++dp) {  // output tiles 2dp, 2dp + 1
         uint32_t vb[4];
         ldsm_x4_trans(vb, Vt + (kk * 16 + (lane & 7) +
-                                ((lane >> 3) & 1) * 8) * RS +
+                                ((lane >> 3) & 1) * 8) * RSV +
                               dp * 16 + (lane >> 4) * 8);
         mma_bf16(acc[2 * dp], a, vb[0], vb[1]);
         mma_bf16(acc[2 * dp + 1], a, vb[2], vb[3]);
@@ -519,7 +534,7 @@ __global__ void __launch_bounds__(kThreads)
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
   const Heads<float> x(p, blockIdx.z, blockIdx.y);
   const int n_kt = n_key_tiles(p, q0);
-  load_first<float, HD>(Qs, Ks, Vs, x, p, q0, tid);
+  load_first<float, HD, HD>(Qs, Ks, Vs, x, p, q0, tid);
 
   // rows g and g + 8 of the warp's 16: running max, sum; the output's
   // hi.hi terms and, apart, its small terms
@@ -529,8 +544,9 @@ __global__ void __launch_bounds__(kThreads)
   zero(acl);
 
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int off = next_tile<float, HD>(Ks, Vs, x.k, x.v, p.sk.l, p.sv.l,
-                                           p.Lk, kt, n_kt, tid);
+    const int off = next_tile<float, HD, HD>(Ks, Vs, x.k, x.v, p.sk.l,
+                                               p.sv.l, p.Lk, kt, n_kt, tid) *
+                    kBK * RS;
     const float* Kt = Ks + off;
     const float* Vt = Vs + off;
 
@@ -618,12 +634,13 @@ struct BwdParams {
 };
 
 // Shared memory of either backward body: six 64-row tiles (dQ: Q, dO and
-// two stages of K and V; dK/dV: K, V and two stages of Q and dO), then
-// 4 x 64 floats (dQ: its rows' LSE and D; dK/dV: two stages of the q
-// tile's LSE and D)
-template <int HD>
+// two stages of K and V; dK/dV: K, V and two stages of Q and dO), three
+// of them (V, dO) at v's head dim HDV, then 4 x 64 floats (dQ: its rows'
+// LSE and D; dK/dV: two stages of the q tile's LSE and D)
+template <int HD, int HDV = HD>
 __host__ __device__ constexpr size_t bwd_smem_bytes() {
-  return sizeof(bf16) * static_cast<size_t>(row_stride<bf16, HD>()) * 6 *
+  return sizeof(bf16) * static_cast<size_t>(row_stride<bf16, HD>() +
+                                            row_stride<bf16, HDV>()) * 3 *
              kBQ + sizeof(float) * 4 * kBQ;
 }
 
@@ -650,19 +667,23 @@ __device__ __forceinline__ void a_split(const float (&x)[N][4], int kk,
 // from device memory (two threads a row), while the Q, dO and first K/V
 // tiles arrive. Per key tile: S = Q K^T and dP = dO V^T (bf16 in, f32
 // accumulate), P = exp2(S scale log2 e - LSE), dS = P o (dP - D), dQ +=
-// dS K with dS as bf16 hi + lo; dQ times the scale at the end.
-template <int HD>
+// dS K with dS as bf16 hi + lo; dQ times the scale at the end. HDV: the
+// head dim of v, o and dO (MLA: 128 against q and k's 192), at most HD.
+template <int HD, int HDV = HD>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const BwdParams p) {
+  static_assert(HDV <= HD, "v's head dim is at most q's");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int RS = row_stride<bf16, HD>();
+  constexpr int RSV = row_stride<bf16, HDV>();
   constexpr int KS = HD / 16;      // k16 steps over the head dim
+  constexpr int KSV = HDV / 16;    // k16 steps over v's head dim
   constexpr int NO = HD / 8;       // n8 tiles of dQ
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);             // [kBQ][RS]
-  bf16* dOs = Qs + kBQ * RS;                                 // [kBQ][RS]
-  bf16* Ks = dOs + kBQ * RS;                                 // [2][kBK][RS]
-  bf16* Vs = Ks + 2 * kBK * RS;                              // [2][kBK][RS]
-  float* sL = reinterpret_cast<float*>(Vs + 2 * kBK * RS);  // [kBQ]
+  bf16* dOs = Qs + kBQ * RS;                                 // [kBQ][RSV]
+  bf16* Ks = dOs + kBQ * RSV;                                // [2][kBK][RS]
+  bf16* Vs = Ks + 2 * kBK * RS;                              // [2][kBK][RSV]
+  float* sL = reinterpret_cast<float*>(Vs + 2 * kBK * RSV); // [kBQ]
   float* sD = sL + kBQ;                                      // [kBQ]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -680,18 +701,18 @@ __global__ void __launch_bounds__(kThreads)
   const int n_kt = p.causal
       ? min(n_all, (min(q0 + kBQ, p.Lq) - 1) / kBK + 1) : n_all;
   load_tile<bf16, HD>(Qs, q, p.sq.l, q0, p.Lq, tid);
-  load_tile<bf16, HD>(dOs, dout, p.sdo.l, q0, p.Lq, tid);
+  load_tile<bf16, HDV>(dOs, dout, p.sdo.l, q0, p.Lq, tid);
   load_tile<bf16, HD>(Ks, k, p.sk.l, 0, p.Lk, tid);
-  load_tile<bf16, HD>(Vs, v, p.sv.l, 0, p.Lk, tid);
+  load_tile<bf16, HDV>(Vs, v, p.sv.l, 0, p.Lk, tid);
   cp_async_commit();
   {
     const int r = tid >> 1, half = tid & 1, row = q0 + r;
     float d = 0.f;
     if (row < p.Lq) {
-      const bf16* x = dout + row * p.sdo.l + half * (HD / 2);
-      const bf16* y = o + row * p.so.l + half * (HD / 2);
+      const bf16* x = dout + row * p.sdo.l + half * (HDV / 2);
+      const bf16* y = o + row * p.so.l + half * (HDV / 2);
 #pragma unroll
-      for (int c = 0; c < HD / 16; ++c) {      // 8 elements at a time
+      for (int c = 0; c < HDV / 16; ++c) {     // 8 elements at a time
         const uint4 xa = *reinterpret_cast<const uint4*>(x + 8 * c);
         const uint4 ya = *reinterpret_cast<const uint4*>(y + 8 * c);
         const __nv_bfloat162* x2 =
@@ -719,8 +740,8 @@ __global__ void __launch_bounds__(kThreads)
   float lse[2], dd[2], acc[NO][4];   // rows g and g + 8 of the warp's 16
   zero(acc);
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int off = next_tile<bf16, HD>(Ks, Vs, k, v, p.sk.l, p.sv.l, p.Lk,
-                                        kt, n_kt, tid);
+    const int st = next_tile<bf16, HD, HDV>(Ks, Vs, k, v, p.sk.l, p.sv.l,
+                                            p.Lk, kt, n_kt, tid);
     if (kt == 0) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -728,11 +749,12 @@ __global__ void __launch_bounds__(kThreads)
         dd[r] = sD[w0 + g + 8 * r];
       }
     }
-    const bf16* Kt = Ks + off;
-    const bf16* Vt = Vs + off;
+    const bf16* Kt = Ks + st * kBK * RS;
+    const bf16* Vt = Vs + st * kBK * RSV;
     const int k0 = kt * kBK;
 
-    // S = Q K^T, dP = dO V^T: n8 tile j holds keys 8j .. 8j + 7
+    // S = Q K^T, dP = dO V^T: n8 tile j holds keys 8j .. 8j + 7; dP's
+    // k16 steps end at v's head dim
     float s[8][4], dp[8][4];
     zero(s);
     zero(dp);
@@ -740,18 +762,22 @@ __global__ void __launch_bounds__(kThreads)
     for (int ks = 0; ks < KS; ++ks) {
       uint32_t qa[4], oa[4];
       ldsm_x4(qa, Qs + (w0 + (lane & 15)) * RS + ks * 16 + (lane >> 4) * 8);
-      ldsm_x4(oa, dOs + (w0 + (lane & 15)) * RS + ks * 16 + (lane >> 4) * 8);
+      if (ks < KSV)
+        ldsm_x4(oa, dOs + (w0 + (lane & 15)) * RSV + ks * 16 +
+                        (lane >> 4) * 8);
 #pragma unroll
       for (int np = 0; np < 4; ++np) {   // key tiles 2np and 2np + 1
-        const int ofs = (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * RS +
-                        ks * 16 + ((lane >> 3) & 1) * 8;
+        const int row = np * 16 + (lane & 7) + ((lane >> 4) << 3);
+        const int col = ks * 16 + ((lane >> 3) & 1) * 8;
         uint32_t kb[4], vb[4];
-        ldsm_x4(kb, Kt + ofs);
-        ldsm_x4(vb, Vt + ofs);
+        ldsm_x4(kb, Kt + row * RS + col);
         mma_bf16(s[2 * np], qa, kb[0], kb[1]);
         mma_bf16(s[2 * np + 1], qa, kb[2], kb[3]);
-        mma_bf16(dp[2 * np], oa, vb[0], vb[1]);
-        mma_bf16(dp[2 * np + 1], oa, vb[2], vb[3]);
+        if (ks < KSV) {
+          ldsm_x4(vb, Vt + row * RSV + col);
+          mma_bf16(dp[2 * np], oa, vb[0], vb[1]);
+          mma_bf16(dp[2 * np + 1], oa, vb[2], vb[3]);
+        }
       }
     }
     // dS = P o (dP - D) into s; P is 0 above the diagonal and past Lk
@@ -809,20 +835,26 @@ __global__ void __launch_bounds__(kThreads)
 // the q tile's LSE and D. Per q tile, in two halves of 32 rows: S^T = K
 // Q^T and dP^T = V dO^T, P^T = exp2(S^T scale log2 e - LSE), dV +=
 // bf16(P^T) dO, dS^T = P^T o (dP^T - D), dK += dS^T Q with dS^T as bf16
-// hi + lo; dK times the scale at the end.
-template <int HD>
+// hi + lo; dK times the scale at the end. HDV: the head dim of v and dO
+// (MLA: 128 against q and k's 192), at most HD.
+template <int HD, int HDV = HD>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_kernel(const BwdParams p) {
+  static_assert(HDV <= HD, "v's head dim is at most q's");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int RS = row_stride<bf16, HD>();
+  constexpr int RSV = row_stride<bf16, HDV>();
   constexpr int KS = HD / 16;      // k16 steps over the head dim
-  constexpr int NO = HD / 8;       // n8 tiles of dK and dV
+  constexpr int KSV = HDV / 16;    // k16 steps over v's head dim
+  constexpr int NO = HD / 8;       // n8 tiles of dK
+  constexpr int NOV = HDV / 8;     // n8 tiles of dV
   constexpr int TILE = kBQ * RS;
+  constexpr int TILEV = kBQ * RSV;
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);             // [kBK][RS]
-  bf16* Vs = Ks + kBK * RS;                                  // [kBK][RS]
-  bf16* Qs = Vs + kBK * RS;                                  // [2][kBQ][RS]
-  bf16* dOs = Qs + 2 * TILE;                                 // [2][kBQ][RS]
-  float* sL = reinterpret_cast<float*>(dOs + 2 * TILE);     // [2][kBQ]
+  bf16* Vs = Ks + kBK * RS;                                  // [kBK][RSV]
+  bf16* Qs = Vs + kBK * RSV;                                 // [2][kBQ][RS]
+  bf16* dOs = Qs + 2 * TILE;                                 // [2][kBQ][RSV]
+  float* sL = reinterpret_cast<float*>(dOs + 2 * TILEV);    // [2][kBQ]
   float* sD = sL + 2 * kBQ;                                  // [2][kBQ]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -845,8 +877,8 @@ __global__ void __launch_bounds__(kThreads)
     const int q0 = (qt0 + i % per_head) * kBQ, st = i & 1;
     load_tile<bf16, HD>(Qs + st * TILE, p.q + b * p.sq.b + h * p.sq.h,
                         p.sq.l, q0, p.Lq, tid);
-    load_tile<bf16, HD>(dOs + st * TILE, p.dout + b * p.sdo.b + h * p.sdo.h,
-                        p.sdo.l, q0, p.Lq, tid);
+    load_tile<bf16, HDV>(dOs + st * TILEV, p.dout + b * p.sdo.b +
+                         h * p.sdo.h, p.sdo.l, q0, p.Lq, tid);
     const long long at = (static_cast<long long>(b) * p.H + h) * p.Lpad + q0;
     if (tid < 16)
       cp_async16(sL + st * kBQ + 4 * tid, p.lse + at + 4 * tid);
@@ -856,13 +888,13 @@ __global__ void __launch_bounds__(kThreads)
   };
   if (n_it > 0) {
     load_tile<bf16, HD>(Ks, k, p.sk.l, k0, p.Lk, tid);
-    load_tile<bf16, HD>(Vs, v, p.sv.l, k0, p.Lk, tid);
+    load_tile<bf16, HDV>(Vs, v, p.sv.l, k0, p.Lk, tid);
     load_it(0);
   }
   cp_async_commit();
 
   const float scale2 = p.scale * kLog2e;
-  float dk[NO][4], dv[NO][4];   // keys g and g + 8 of the warp's 16
+  float dk[NO][4], dv[NOV][4];  // keys g and g + 8 of the warp's 16
   zero(dk);
   zero(dv);
   for (int i = 0; i < n_it; ++i) {
@@ -876,12 +908,13 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     const int st = i & 1, q0 = (qt0 + i % per_head) * kBQ;
     const bf16* Qt = Qs + st * TILE;
-    const bf16* dOt = dOs + st * TILE;
+    const bf16* dOt = dOs + st * TILEV;
     const float* L = sL + st * kBQ;
     const float* D = sD + st * kBQ;
 #pragma unroll
     for (int c0 = 0; c0 < kBQ; c0 += 32) {   // rows c0 .. c0 + 31 of the tile
-      // S^T = K Q^T, dP^T = V dO^T: n8 tile j holds q rows c0 + 8j ..
+      // S^T = K Q^T, dP^T = V dO^T: n8 tile j holds q rows c0 + 8j ..;
+      // dP^T's k16 steps end at v's head dim
       float s[4][4], dp[4][4];
       zero(s);
       zero(dp);
@@ -889,18 +922,22 @@ __global__ void __launch_bounds__(kThreads)
       for (int ks = 0; ks < KS; ++ks) {
         uint32_t ka[4], va[4];
         ldsm_x4(ka, Ks + (w0 + (lane & 15)) * RS + ks * 16 + (lane >> 4) * 8);
-        ldsm_x4(va, Vs + (w0 + (lane & 15)) * RS + ks * 16 + (lane >> 4) * 8);
+        if (ks < KSV)
+          ldsm_x4(va, Vs + (w0 + (lane & 15)) * RSV + ks * 16 +
+                          (lane >> 4) * 8);
 #pragma unroll
         for (int np = 0; np < 2; ++np) {   // q tiles 2np and 2np + 1
-          const int ofs = (c0 + np * 16 + (lane & 7) + ((lane >> 4) << 3)) *
-                              RS + ks * 16 + ((lane >> 3) & 1) * 8;
+          const int row = c0 + np * 16 + (lane & 7) + ((lane >> 4) << 3);
+          const int col = ks * 16 + ((lane >> 3) & 1) * 8;
           uint32_t qb[4], ob[4];
-          ldsm_x4(qb, Qt + ofs);
-          ldsm_x4(ob, dOt + ofs);
+          ldsm_x4(qb, Qt + row * RS + col);
           mma_bf16(s[2 * np], ka, qb[0], qb[1]);
           mma_bf16(s[2 * np + 1], ka, qb[2], qb[3]);
-          mma_bf16(dp[2 * np], va, ob[0], ob[1]);
-          mma_bf16(dp[2 * np + 1], va, ob[2], ob[3]);
+          if (ks < KSV) {
+            ldsm_x4(ob, dOt + row * RSV + col);
+            mma_bf16(dp[2 * np], va, ob[0], ob[1]);
+            mma_bf16(dp[2 * np + 1], va, ob[2], ob[3]);
+          }
         }
       }
       // P^T into s (0 above the diagonal and past Lq), dS^T into dp
@@ -921,7 +958,7 @@ __global__ void __launch_bounds__(kThreads)
         }
       // dV += bf16(P^T) dO and dK += dS^T Q (hi and lo): the n8 tiles 2kk,
       // 2kk + 1 are the A fragment of k16 step kk, dO's and Q's fragments
-      // read by ldmatrix.trans
+      // read by ldmatrix.trans; dV's tiles end at v's head dim
 #pragma unroll
       for (int kk = 0; kk < 2; ++kk) {
         const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
@@ -932,13 +969,15 @@ __global__ void __launch_bounds__(kThreads)
         a_split(dp, kk, ah, al);
 #pragma unroll
         for (int d2 = 0; d2 < HD / 16; ++d2) {   // tiles 2d2, 2d2 + 1
-          const int ofs = (c0 + kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                              RS + d2 * 16 + (lane >> 4) * 8;
+          const int row = c0 + kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+          const int col = d2 * 16 + (lane >> 4) * 8;
           uint32_t ob[4], qb[4];
-          ldsm_x4_trans(ob, dOt + ofs);
-          ldsm_x4_trans(qb, Qt + ofs);
-          mma_bf16(dv[2 * d2], a, ob[0], ob[1]);
-          mma_bf16(dv[2 * d2 + 1], a, ob[2], ob[3]);
+          if (d2 < KSV) {
+            ldsm_x4_trans(ob, dOt + row * RSV + col);
+            mma_bf16(dv[2 * d2], a, ob[0], ob[1]);
+            mma_bf16(dv[2 * d2 + 1], a, ob[2], ob[3]);
+          }
+          ldsm_x4_trans(qb, Qt + row * RS + col);
           mma_bf16(dk[2 * d2], ah, qb[0], qb[1]);
           mma_bf16(dk[2 * d2], al, qb[0], qb[1]);
           mma_bf16(dk[2 * d2 + 1], ah, qb[2], qb[3]);
@@ -959,8 +998,9 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < NO; ++j) {
       *reinterpret_cast<__nv_bfloat162*>(outk + 8 * j) = __floats2bfloat162_rn(
           dk[j][2 * r] * p.scale, dk[j][2 * r + 1] * p.scale);
-      *reinterpret_cast<__nv_bfloat162*>(outv + 8 * j) =
-          __floats2bfloat162_rn(dv[j][2 * r], dv[j][2 * r + 1]);
+      if (j < NOV)
+        *reinterpret_cast<__nv_bfloat162*>(outv + 8 * j) =
+            __floats2bfloat162_rn(dv[j][2 * r], dv[j][2 * r + 1]);
     }
   }
 }
@@ -989,13 +1029,20 @@ int launch_hd(int dtype, const Params& p, int B, int H, cudaStream_t s) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// MLA's (192, 128): the bf16 body only
+int launch_mla(int dtype, const Params& p, int B, int H, cudaStream_t s) {
+  if (dtype != kBF16) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(flash_tc_kernel<192, 128>, smem_bytes<bf16, 192, 128>(),
+                dim3((p.Lq + kBQ - 1) / kBQ, H, B), p, s);
+}
+
 // the dQ kernel (which writes D), then the dK/dV kernel, on one stream
-template <int HD>
+template <int HD, int HDV = HD>
 int launch_bwd_hd(const BwdParams& p, int B, int KV, cudaStream_t s) {
-  const int e = launch(flash_bwd_dq_kernel<HD>, bwd_smem_bytes<HD>(),
+  const int e = launch(flash_bwd_dq_kernel<HD, HDV>, bwd_smem_bytes<HD, HDV>(),
                        dim3(p.Lpad / kBQ, p.H, B), p, s);
   if (e != 0) return e;
-  return launch(flash_bwd_dkv_kernel<HD>, bwd_smem_bytes<HD>(),
+  return launch(flash_bwd_dkv_kernel<HD, HDV>, bwd_smem_bytes<HD, HDV>(),
                 dim3((p.Lk + kBK - 1) / kBK, KV, B), p, s);
 }
 
@@ -1012,15 +1059,16 @@ long long smem_hd(int dtype) {
 
 // C entry point (bound with ctypes). strides: 12 element strides, (b, h,
 // l) of q, k, v and out in that order; the last dimension of each must be
-// contiguous and every row 16-byte aligned (the wrapper checks). hd: 64,
-// 80, 96 or 128. window < 0: none; cap <= 0: none. lse: null, or (bf16
-// only) (B, H, ceil(Lq / 64) * 64) f32 for each row's base-2 log-sum-exp
-// (+inf past Lq). Returns cudaGetLastError() after the launch, or
+// contiguous and every row 16-byte aligned (the wrapper checks). hd (q and
+// k) and hdv (v and out): 64, 80, 96 or 128 for both, or (bf16 only) 192
+// and 128. window < 0: none; cap <= 0: none. lse: null, or (bf16 only) (B,
+// H, ceil(Lq / 64) * 64) f32 for each row's base-2 log-sum-exp (+inf past
+// Lq). Returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for arguments the kernel does not take.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o,
                                       const long long* strides, int B, int H,
-                                      int KV, int Lq, int Lk, int hd,
+                                      int KV, int Lq, int Lk, int hd, int hdv,
                                       int dtype, int causal, int window,
                                       float cap, float scale, float* lse,
                                       void* stream) {
@@ -1036,6 +1084,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   p.rep = H / KV; p.Lq = Lq; p.Lk = Lk;
   p.scale = scale; p.cap = cap; p.causal = causal; p.window = window;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hd == 192 && hdv == 128) return launch_mla(dtype, p, B, H, s);
+  if (hdv != hd) return static_cast<int>(cudaErrorInvalidValue);
   switch (hd) {
     case 64: return launch_hd<64>(dtype, p, B, H, s);
     case 80: return launch_hd<80>(dtype, p, B, H, s);
@@ -1045,9 +1095,13 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Dynamic shared memory per block of the body that takes (hd, dtype), in
-// bytes; -1 for arguments the kernel does not take.
-extern "C" long long flash_attention_smem_bytes(int hd, int dtype) {
+// Dynamic shared memory per block of the body that takes (hd, hdv, dtype),
+// in bytes; -1 for arguments the kernel does not take.
+extern "C" long long flash_attention_smem_bytes(int hd, int hdv, int dtype) {
+  if (hd == 192 && hdv == 128)
+    return dtype == kBF16
+               ? static_cast<long long>(smem_bytes<bf16, 192, 128>()) : -1;
+  if (hdv != hd) return -1;
   switch (hd) {
     case 64: return smem_hd<64>(dtype);
     case 80: return smem_hd<80>(dtype);
@@ -1059,16 +1113,17 @@ extern "C" long long flash_attention_smem_bytes(int hd, int dtype) {
 
 // C entry point of the backward (bf16 only, no window, no soft-cap).
 // strides: 24 element strides, (b, h, l) of q, k, v, o, dout, dq, dk and
-// dv in that order, under the forward's rules. lse: the forward's, (B, H,
-// Lpad) with Lpad = ceil(Lq / 64) * 64; delta: scratch of the same shape.
-// dq, dk, dv take q's, k's and v's shapes. Returns cudaGetLastError()
-// after the launches, or cudaErrorInvalidValue for arguments the kernels
-// do not take.
+// dv in that order, under the forward's rules. hd: q's and k's head dim,
+// hdv: v's, o's and dout's (the forward's pairs). lse: the forward's, (B,
+// H, Lpad) with Lpad = ceil(Lq / 64) * 64; delta: scratch of the same
+// shape. dq, dk, dv take q's, k's and v's shapes. Returns
+// cudaGetLastError() after the launches, or cudaErrorInvalidValue for
+// arguments the kernels do not take.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
     void* dv, const long long* strides, int B, int H, int KV, int Lq, int Lk,
-    int hd, int causal, float scale, void* stream) {
+    int hd, int hdv, int causal, float scale, void* stream) {
   if (B <= 0 || B > 65535 || H <= 0 || H > 65535 || KV <= 0 || H % KV ||
       Lq <= 0 || Lk <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1087,6 +1142,8 @@ extern "C" int flash_attention_bwd_launch(
   p.Lpad = (Lq + kBQ - 1) / kBQ * kBQ;
   p.scale = scale; p.causal = causal;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hd == 192 && hdv == 128) return launch_bwd_hd<192, 128>(p, B, KV, s);
+  if (hdv != hd) return static_cast<int>(cudaErrorInvalidValue);
   switch (hd) {
     case 64: return launch_bwd_hd<64>(p, B, KV, s);
     case 80: return launch_bwd_hd<80>(p, B, KV, s);
@@ -1096,9 +1153,12 @@ extern "C" int flash_attention_bwd_launch(
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Dynamic shared memory per block of either backward body at hd, in
-// bytes; -1 for a head dim the kernels do not take.
-extern "C" long long flash_attention_bwd_smem_bytes(int hd) {
+// Dynamic shared memory per block of either backward body at (hd, hdv), in
+// bytes; -1 for a pair the kernels do not take.
+extern "C" long long flash_attention_bwd_smem_bytes(int hd, int hdv) {
+  if (hd == 192 && hdv == 128)
+    return static_cast<long long>(bwd_smem_bytes<192, 128>());
+  if (hdv != hd) return -1;
   switch (hd) {
     case 64: return static_cast<long long>(bwd_smem_bytes<64>());
     case 80: return static_cast<long long>(bwd_smem_bytes<80>());

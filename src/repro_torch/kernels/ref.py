@@ -57,8 +57,8 @@ def ckpt_pack_dirty_plain(x2d, prev2d, *, out_dtype=None, scale=1.0):
 
 def flash_attention_plain(q, k, v, *, causal=True, window=None, cap=None,
                           lse=False):
-    """q (B, H, Lq, hd); k, v (B, KV, Lk, hd) -> (B, H, Lq, hd) in q's
-    dtype, with the Pallas kernel's arithmetic: f32 scores scaled by
+    """q (B, H, Lq, hd); k (B, KV, Lk, hd), v (B, KV, Lk, hd_v) -> (B, H,
+    Lq, hd_v) in q's dtype, with the Pallas kernel's arithmetic: f32 scores scaled by
     1/sqrt(hd), masked logits at -1e30, p kept in f32 against an f32 v.
     A row with no valid key averages v over the Lk keys, as
     ``repro.kernels.ref.flash_attention_ref`` does. With ``lse``, returns
@@ -95,7 +95,8 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal=True):
     times the scale, with dS taken as a bf16 hi + lo pair for bf16 inputs
     (the kernels' two tensor-core products; about 2^-17 relative per
     element, where a single bf16 dS would be 2^-9). KV heads sum the
-    gradients of their group."""
+    gradients of their group. v and dout may have a head dim of their
+    own (MLA's 128 against q and k's 192); the scale is q's."""
     B, H, Lq, hd = q.shape
     KV, Lk = k.shape[1], k.shape[2]
     rep = H // KV
@@ -117,8 +118,8 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal=True):
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
 
-    def group(x):            # (B, H, Lk, hd) -> (B, KV, Lk, hd)
-        return x.reshape(B, KV, rep, Lk, hd).sum(2)
+    def group(x):            # (B, H, Lk, ·) -> (B, KV, Lk, ·)
+        return x.reshape(B, KV, rep, Lk, x.shape[-1]).sum(2)
     return dq.to(q.dtype), group(dk).to(k.dtype), group(dv).to(v.dtype)
 
 

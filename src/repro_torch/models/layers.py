@@ -15,6 +15,8 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spans
+from repro_torch.configs.base import DeepSeekMoEConfig, YarnMLAConfig
 from repro_torch.kernels.ref import MASK_VALUE, ssd_intra_chunk_plain
 
 
@@ -55,6 +57,37 @@ def rope_tables(positions, head_dim, theta):
                       * (math.log(theta) / half))
     ang = positions.float()[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)
+
+
+def _yarn_mscale(factor, mscale):
+    return 0.1 * mscale * math.log(factor) + 1.0 if factor > 1 else 1.0
+
+
+def mla_rope(pos, cfg):
+    """MLA's rotary tables, cos and sin (L, rope_dim//2) in fp32, and the
+    factor its softmax scale takes over 1/sqrt(q.k head dim): plain
+    rotary at ``rope_theta``, or, under ``YarnMLAConfig``, DeepSeek-V2's
+    YaRN (its ``DeepseekV2YarnRotaryEmbedding`` and attention scale)."""
+    m, dim, base = cfg.mla, cfg.mla.qk_rope_head_dim, cfg.rope_theta
+    if not isinstance(m, YarnMLAConfig):
+        return (*rope_tables(pos, dim, base), 1.0)
+
+    def corr(rotations):
+        return (dim * math.log(m.original_max_position_embeddings
+                               / (rotations * 2 * math.pi))
+                / (2 * math.log(base)))
+    low = max(math.floor(corr(m.beta_fast)), 0)
+    high = min(math.ceil(corr(m.beta_slow)), dim - 1)
+    i = torch.arange(dim // 2, dtype=torch.float32, device=pos.device)
+    extra = 1.0 / base ** (2 * i / dim)
+    ramp = ((i - low) / ((high - low) or 1e-3)).clamp(0, 1)
+    freqs = extra / m.factor * ramp + extra * (1 - ramp)
+    ang = pos.float()[..., None] * freqs
+    cs = (_yarn_mscale(m.factor, m.mscale)
+          / _yarn_mscale(m.factor, m.mscale_all_dim))
+    scale = (_yarn_mscale(m.factor, m.mscale_all_dim) ** 2
+             if m.mscale_all_dim else 1.0)
+    return torch.cos(ang) * cs, torch.sin(ang) * cs, scale
 
 
 def apply_rope(x, cos, sin):
@@ -140,12 +173,20 @@ def gqa_out(p, o):
 # ------------------------------------------------------------------- MLA
 
 def mla_init(cfg, generator, device, lead=()):
+    """MLA's weights; without a query LoRA (``q_lora_rank`` None) one
+    ``wq`` (d, H * (nope + rope)) in place of ``wq_a``, ``q_norm`` and
+    ``wq_b``."""
     m, d, H = cfg.mla, cfg.d_model, cfg.n_heads
     qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    if m.q_lora_rank is None:
+        p = {"wq": dense_init(d, H * qk, generator, device, lead)}
+    else:
+        p = {"wq_a": dense_init(d, m.q_lora_rank, generator, device, lead),
+             "q_norm": rmsnorm_init(m.q_lora_rank, device, lead),
+             "wq_b": dense_init(m.q_lora_rank, H * qk, generator, device,
+                                lead)}
     return {
-        "wq_a": dense_init(d, m.q_lora_rank, generator, device, lead),
-        "q_norm": rmsnorm_init(m.q_lora_rank, device, lead),
-        "wq_b": dense_init(m.q_lora_rank, H * qk, generator, device, lead),
+        **p,
         "wkv_a": dense_init(d, m.kv_lora_rank + m.qk_rope_head_dim,
                             generator, device, lead),
         "kv_norm": rmsnorm_init(m.kv_lora_rank, device, lead),
@@ -164,7 +205,7 @@ def _f32_einsum(eq, a, b):
 
 
 def mla_attention(p, x, cfg, pos, cache=None, cache_pos=None,
-                  absorb=False):
+                  absorb=False, attn=None):
     """Multi-head latent attention, the reference's ``mla_attention``. The
     cache holds the COMPRESSED latent (B, S, kv_lora_rank + rope_dim),
     normalised at write; ``cache`` is this layer's, written in place at
@@ -174,20 +215,32 @@ def mla_attention(p, x, cfg, pos, cache=None, cache_pos=None,
     absorb=True attends in latent space: wkv_b's key half is folded into
     the query and its value half applied after, so per-position K and V
     are never expanded from the cache. Its score and latent products take
-    compute-dtype operands summed in f32, as the reference's."""
+    compute-dtype operands summed in f32, as the reference's.
+
+    ``attn(q, k, v)`` on (B, L, H, ·) tensors, q and k of head dim nope +
+    rope and v of ``v_head_dim``, replaces the causal attention of the
+    naive path without a cache (the train step's flash kernels); without
+    it, ``attention``."""
     m, H = cfg.mla, cfg.n_heads
     B, L, _ = x.shape
     nope, rope_d, vd = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
     rank = m.kv_lora_rank
 
-    q = rmsnorm(x @ p["wq_a"].to(x.dtype), p["q_norm"], cfg.norm_eps)
-    q = (q @ p["wq_b"].to(x.dtype)).reshape(B, L, H, nope + rope_d)
+    if m.q_lora_rank is None:
+        q = x @ p["wq"].to(x.dtype)
+    else:
+        q = rmsnorm(x @ p["wq_a"].to(x.dtype), p["q_norm"], cfg.norm_eps)
+        q = q @ p["wq_b"].to(x.dtype)
+    q = q.reshape(B, L, H, nope + rope_d)
+    cos, sin, scale = mla_rope(pos, cfg)
+    if scale != 1.0:
+        # YaRN's softmax scale, on q so that every attention path takes it
+        q = q * scale
     q_nope, q_rope = q[..., :nope], q[..., nope:]
 
     kv_a = x @ p["wkv_a"].to(x.dtype)                     # (B,L,rank+rope)
     latent, k_rope_flat = kv_a[..., :rank], kv_a[..., rank:]
 
-    cos, sin = rope_tables(pos, rope_d, cfg.rope_theta)
     q_rope = apply_rope(q_rope, cos, sin)
     k_rope = apply_rope(k_rope_flat[:, :, None, :], cos, sin)  # (B,L,1,rope)
     # norm at write: the cache holds the normalised latent
@@ -227,8 +280,11 @@ def mla_attention(p, x, cfg, pos, cache=None, cache_pos=None,
         k = torch.cat([k_nope, k_rope_all[:, :, None, :].expand(
             *k_nope.shape[:3], rope_d)], dim=-1)
         qq = torch.cat([q_nope, q_rope], dim=-1)
-        o = attention(qq, k, v, q_pos=pos, kv_pos=kv_pos,
-                      kv_valid_len=valid)
+        if attn is not None and cache is None:
+            o = attn(qq, k, v)
+        else:
+            o = attention(qq, k, v, q_pos=pos, kv_pos=kv_pos,
+                          kv_valid_len=valid)
     out = o.reshape(B, L, H * vd) @ p["wo"].to(x.dtype)
     return out, (cache if cache is not None else new_entry)
 
@@ -260,6 +316,8 @@ def mlp(p, x, gated=True, act=gelu):
 # ------------------------------------------------------------------- MoE
 
 def moe_init(cfg, generator, device, lead=()):
+    if isinstance(cfg.moe, DeepSeekMoEConfig):
+        return _deepseek_moe_init(cfg, generator, device, lead)
     e, d, ff = cfg.moe.n_experts, cfg.d_model, cfg.d_ff
     p = {
         "router": dense_init(d, e, generator, device, lead),
@@ -270,6 +328,24 @@ def moe_init(cfg, generator, device, lead=()):
     if cfg.moe.dense_residual:
         p["dense"] = mlp_init(d, cfg.moe.dense_ff or cfg.d_ff, generator,
                               device, lead=lead)
+    return p
+
+
+def _deepseek_moe_init(cfg, generator, device, lead=()):
+    """The router over all ``n_experts``, the held experts stacked (…,
+    E_held, ...) at ``moe_intermediate_size``, and the shared experts as
+    one SwiGLU of ``n_shared_experts`` times that width (``shared``)."""
+    m, d = cfg.moe, cfg.d_model
+    e, ff = len(m.held), m.moe_intermediate_size
+    p = {
+        "router": dense_init(d, m.n_experts, generator, device, lead),
+        "wi": uniform_scale((*lead, e, d, ff), d, generator, device),
+        "wg": uniform_scale((*lead, e, d, ff), d, generator, device),
+        "wo": uniform_scale((*lead, e, ff, d), ff, generator, device),
+    }
+    if m.n_shared_experts:
+        p["shared"] = mlp_init(d, m.n_shared_experts * ff, generator,
+                               device, lead=lead)
     return p
 
 
@@ -325,7 +401,7 @@ def _expert_ffn(p, ex_in, lead: str):
 
 
 def moe_apply(p, x, cfg, *, n_groups=1, capacity_factor=None,
-              impl="einsum"):
+              impl="einsum", layer=0):
     """Mixture-of-experts layer, the reference's ``moe_apply``. Returns
     (out, aux_loss).
 
@@ -333,10 +409,14 @@ def moe_apply(p, x, cfg, *, n_groups=1, capacity_factor=None,
     (token, k) past its expert's capacity, in arrival order, is dropped.
     impl="sorted": tokens routed by a stable sort and gather/scatter
     (``moe_apply_sorted``); the same output when capacity is ample, and
-    drops by token index within an expert when it is not."""
+    drops by token index within an expert when it is not.
+    impl="dropless": ``moe_apply_dropless``, ``layer`` its MoE layer's
+    index."""
     if impl == "sorted":
         return moe_apply_sorted(p, x, cfg, n_groups=n_groups,
                                 capacity_factor=capacity_factor)
+    if impl == "dropless":
+        return moe_apply_dropless(p, x, cfg, layer)
     B, L, D = x.shape
     E = cfg.moe.n_experts
     r = moe_route(p, x, cfg, n_groups=n_groups,
@@ -415,6 +495,116 @@ def moe_apply_sorted(p, x, cfg, *, n_groups=1, capacity_factor=None):
     if cfg.moe.dense_residual:
         out = out + mlp(p["dense"], x, gated=cfg.gated_mlp, act=F.silu)
     return out, aux
+
+
+def grouped_matmul(x, w, offs, sizes):
+    """x (N, d_in), its rows grouped: group g is rows ``offs[g - 1]`` to
+    ``offs[g]`` (``offs`` the int32 end of each group on x's device,
+    ``sizes`` the groups' lengths on the host); w (G, d_in, d_out) ->
+    (N, d_out), group g's rows times ``w[g]``. On the card one
+    ``torch._grouped_mm`` forward (and its backward), counted in
+    ``grouped_matmul.launches``; elsewhere one product a group, the plain
+    version."""
+    if x.is_cuda:
+        grouped_matmul.launches += 1
+        return torch._grouped_mm(x, w, offs=offs)
+    return torch.cat([a @ b for a, b in zip(x.split(sizes), w.unbind(0))])
+
+
+grouped_matmul.launches = 0
+
+
+def balance_aux(m, probs, gate_i, n_seq: int):
+    """DeepSeek-V2's balance loss over ``n_seq`` sequences of the tokens
+    (1: the whole batch as one): per sequence b, f_{b,i} = E / (K S) times
+    the (token, k) pairs routed to expert i, P_{b,i} the mean of its
+    tokens' router probabilities s_{t,i}; alpha times the mean over b of
+    sum_i f_{b,i} P_{b,i}. probs (T, E) f32, gate_i (T, K)."""
+    E, K = m.n_experts, m.top_k
+    P = probs.reshape(n_seq, -1, E)
+    idx = gate_i.reshape(n_seq, -1)
+    count = torch.zeros((n_seq, E), dtype=torch.float32,
+                        device=probs.device).scatter_add_(
+        1, idx, torch.ones(idx.shape, dtype=torch.float32,
+                           device=probs.device))
+    f = count * (E / (K * P.shape[1]))
+    return m.aux_loss_coef * (f * P.mean(1)).sum(1).mean()
+
+
+def _count_pairs(counts, layer: int, n_layers: int):
+    """Adds a MoE layer's (E_held,) pair counts to row ``layer`` of
+    ``moe_apply_dropless.pairs``, (``n_layers``, E_held) on the device
+    (no host read)."""
+    c = moe_apply_dropless.pairs
+    shape = (n_layers, counts.shape[0])
+    if c is None or c.shape != shape or c.device != counts.device:
+        c = moe_apply_dropless.pairs = counts.new_zeros(shape)
+    c[layer].add_(counts)
+
+
+def moe_apply_dropless(p, x, cfg, layer: int = 0):
+    """DeepSeekMoE's layer (``DeepSeekMoEConfig``), as DeepSeek-V2's
+    released code computes it, over the routed experts this chip holds;
+    ``layer`` is its index among the model's MoE layers. Returns (out,
+    aux_loss).
+
+    The router scores all ``n_experts`` in f32 (``s = softmax(x W_r)``);
+    the top k come from a stable descending sort, as ``moe_route``
+    takes them; the gates are ``s`` at the top k. Every (token, k) pair
+    that lands on a held expert is computed (dropless; no capacity
+    buffer): the pairs sorted stably by expert, one grouped product for
+    each of the SwiGLU's three matrices (``grouped_matmul``), each output
+    times its gate and added in f32 into its token's row. The shared
+    experts (``p["shared"]``) run on every token and add. What the
+    experts held elsewhere would add is left out: an expert-parallel
+    rank's part of the layer. The balance loss is per sequence of x.
+
+    One host read of the held experts' pair counts (span ``moe.sync``)
+    sizes the grouped product; the counts also add to row ``layer`` of
+    ``moe_apply_dropless.pairs`` on the device. Spans: ``moe.route``,
+    ``moe.sync``, ``moe.experts``, ``moe.shared``."""
+    B, L, D = x.shape
+    m = cfg.moe
+    K, held = m.top_k, m.held
+    T = B * L
+    xt = x.reshape(T, D)
+    with spans.span("moe.route"):
+        probs = torch.softmax(xt.float() @ p["router"].float(), dim=-1)
+        gate_i = torch.sort(probs.detach(), dim=-1, descending=True,
+                            stable=True).indices[:, :K]
+        gate_v = probs.gather(-1, gate_i)
+        aux = balance_aux(m, probs, gate_i, B)
+        local = gate_i.reshape(-1) - held.start
+        key = torch.where((local >= 0) & (local < len(held)), local,
+                          len(held))
+        counts = torch.bincount(key, minlength=len(held) + 1)[:len(held)]
+        _count_pairs(counts, layer, cfg.n_layers - m.first_k_dense_replace)
+    with spans.span("moe.sync"):
+        sizes = counts.tolist()
+    n = sum(sizes)
+    with spans.span("moe.experts"):
+        out = None
+        if n:
+            dt = x.dtype
+            order = torch.argsort(key, stable=True)[:n]
+            offs = torch.cumsum(counts, 0).to(torch.int32)
+            xin = xt[order // K]
+            h = grouped_matmul(xin, p["wi"].to(dt), offs, sizes)
+            g = grouped_matmul(xin, p["wg"].to(dt), offs, sizes)
+            y = grouped_matmul(F.silu(g) * h, p["wo"].to(dt), offs, sizes)
+            y = y * gate_v.reshape(-1)[order].to(dt)[:, None]
+            out = xt.new_zeros(T, D, dtype=torch.float32).index_add_(
+                0, order // K, y.float()).to(dt).reshape(B, L, D)
+    if "shared" in p:
+        with spans.span("moe.shared"):
+            sh = mlp(p["shared"], x, gated=True, act=F.silu)
+        out = sh if out is None else out + sh
+    if out is None:
+        out = torch.zeros_like(x)
+    return out, aux
+
+
+moe_apply_dropless.pairs = None
 
 
 def layer_slices(tree, n):

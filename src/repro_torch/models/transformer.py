@@ -36,11 +36,14 @@ from repro_torch.models import layers as ly
 GLOBAL_WINDOW = 2 ** 30
 
 
-def init(cfg, generator, device):
-    """f32 parameters of the reference's tree (``layers`` stacked on a
-    leading ``n_layers`` axis; a MoE layer's experts stacked (L, E, ...);
-    the vision frontend's ``vis_proj``)."""
-    L = (cfg.n_layers,)
+def n_dense_layers(cfg) -> int:
+    """Leading dense layers of a MoE model (``first_k_dense_replace``),
+    kept in a stack of their own, ``dense_layers``, ahead of ``layers``."""
+    return getattr(cfg.moe, "first_k_dense_replace", 0)
+
+
+def _stack_init(cfg, generator, device, n: int, moe: bool):
+    L = (n,)
     d = cfg.d_model
     layer = {"ln1": ly.rmsnorm_init(d, device, L),
              "ln2": ly.rmsnorm_init(d, device, L)}
@@ -48,7 +51,7 @@ def init(cfg, generator, device):
         layer["attn"] = ly.mla_init(cfg, generator, device, L)
     else:
         layer["attn"] = ly.gqa_init(cfg, generator, device, L)
-    if cfg.moe is not None:
+    if moe:
         layer["mlp"] = ly.moe_init(cfg, generator, device, L)
     else:
         layer["mlp"] = ly.mlp_init(d, cfg.d_ff, generator, device,
@@ -56,12 +59,27 @@ def init(cfg, generator, device):
     if cfg.attn_softcap is not None:          # gemma2's post-norms
         layer["ln1b"] = ly.rmsnorm_init(d, device, L)
         layer["ln2b"] = ly.rmsnorm_init(d, device, L)
-    params = {
-        "embed": ly.uniform_scale((cfg.vocab_size, d), d, generator,
-                                  device),
-        "layers": layer,
-        "final_norm": ly.rmsnorm_init(d, device),
-    }
+    return layer
+
+
+def init(cfg, generator, device):
+    """f32 parameters of the reference's tree (``layers`` stacked on a
+    leading ``n_layers`` axis; a MoE layer's experts stacked (L, E, ...);
+    the vision frontend's ``vis_proj``). A MoE model's leading dense
+    layers (``n_dense_layers``) are the stack ``dense_layers``, and
+    ``layers`` the ``n_layers`` less them that follow."""
+    d = cfg.d_model
+    n_dense = n_dense_layers(cfg)
+    params = {}
+    if n_dense:
+        params["dense_layers"] = _stack_init(cfg, generator, device,
+                                             n_dense, False)
+    params["layers"] = _stack_init(cfg, generator, device,
+                                   cfg.n_layers - n_dense,
+                                   cfg.moe is not None)
+    params["embed"] = ly.uniform_scale((cfg.vocab_size, d), d, generator,
+                                       device)
+    params["final_norm"] = ly.rmsnorm_init(d, device)
     if not cfg.tie_embeddings:
         params["lm_head"] = ly.dense_init(d, cfg.vocab_size, generator,
                                           device)
@@ -77,7 +95,8 @@ def _is_global(cfg):
 
 
 def _block(cfg, x, lp, pos, *, is_glob=True, cache_k=None, cache_v=None,
-           cache_pos=None, moe_groups=1, attn_kernel=None, moe_kernel=None):
+           cache_pos=None, moe_groups=1, attn_kernel=None, moe_kernel=None,
+           moe_layer=0):
     """One decoder block; returns (x, aux). ``cache_k``/``cache_v`` (B, S,
     KV, hd): this layer's cache, written in place at ``cache_pos`` (MLA:
     ``cache_k`` is its latent cache). A windowed config gives a local
@@ -86,12 +105,14 @@ def _block(cfg, x, lp, pos, *, is_glob=True, cache_k=None, cache_v=None,
     the attention under the reference's gate: no cache and no window.
     Without it, ``fa.flash_attention`` (forward and backward kernels)
     takes a cacheless attention where ``fa.kernel_takes`` (bf16 on the
-    card, no window, no soft-cap); anything else is ``ly.attention``."""
+    card, no window, no soft-cap); anything else is ``ly.attention``.
+    ``moe_layer``: the block's index among the MoE layers."""
     h = ly.rmsnorm(x, lp["ln1"], cfg.norm_eps)
     if cfg.attn_kind == "mla":
         attn_out, _ = ly.mla_attention(
             lp["attn"], h, cfg, pos, cache=cache_k, cache_pos=cache_pos,
-            absorb=cfg.mla_absorb and cache_k is not None)
+            absorb=cfg.mla_absorb and cache_k is not None,
+            attn=partial(_mla_train_attention, pos=pos))
     else:
         q, k, v = ly.gqa_qkv(lp["attn"], h, cfg)
         cos, sin = ly.rope_tables(pos, cfg.resolved_head_dim,
@@ -123,7 +144,7 @@ def _block(cfg, x, lp, pos, *, is_glob=True, cache_k=None, cache_v=None,
     x = x + attn_out
     h = ly.rmsnorm(x, lp["ln2"], cfg.norm_eps)
     aux = None
-    if cfg.moe is None:
+    if cfg.moe is None or "router" not in lp["mlp"]:
         # gelu under a soft-cap (gemma2), silu otherwise: the reference's
         # rule, so its GPT-3 MLP runs silu too (ROADMAP C.18)
         out = ly.mlp(lp["mlp"], h, gated=cfg.gated_mlp,
@@ -132,10 +153,30 @@ def _block(cfg, x, lp, pos, *, is_glob=True, cache_k=None, cache_v=None,
         out, aux = moe_kernel(lp["mlp"], h, cfg)
     else:
         out, aux = ly.moe_apply(lp["mlp"], h, cfg, n_groups=moe_groups,
-                                impl=cfg.moe_impl)
+                                impl=cfg.moe_impl, layer=moe_layer)
     if "ln2b" in lp:
         out = ly.rmsnorm(out, lp["ln2b"], cfg.norm_eps)
     return x + out, aux
+
+
+def _mla_train_attention(q, k, v, pos):
+    """MLA's causal attention without a cache, on (B, L, H, ·) tensors:
+    the flash kernels (forward and backward) where ``fa.kernel_takes``
+    the head dims (bf16 on the card: q and k at 192, v at 128, as
+    DeepSeek-V2's), else ``ly.attention``."""
+    if fa.kernel_takes(q, hd_v=v.shape[-1]):
+        return fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2)).transpose(1, 2)
+    return ly.attention(q, k, v, q_pos=pos, kv_pos=pos)
+
+
+def _all_layers(params, cfg):
+    """Every layer's parameters in order: the leading dense stack's, then
+    ``layers``'."""
+    n_dense = n_dense_layers(cfg)
+    dense = (ly.layer_slices(params["dense_layers"], n_dense) if n_dense
+             else [])
+    return dense + ly.layer_slices(params["layers"], cfg.n_layers - n_dense)
 
 
 def _layers(params, cfg, x, pos, cache=None, cache_pos=None, remat=False,
@@ -145,7 +186,9 @@ def _layers(params, cfg, x, pos, cache=None, cache_pos=None, remat=False,
     ``remat``: each block's activations recomputed in the backward."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     glob = _is_global(cfg)
-    for i, lp in enumerate(ly.layer_slices(params["layers"], cfg.n_layers)):
+    n_dense = n_dense_layers(cfg)
+    for i, lp in enumerate(_all_layers(params, cfg)):
+        kw.update(moe_layer=i - n_dense)
         if cache is not None and "latent" in cache:
             kw.update(cache_k=cache["latent"][i], cache_pos=cache_pos)
         elif cache is not None:

@@ -26,6 +26,11 @@ The names, by layer:
 ``data.h2d``           its host→device copy, with bytes
 ``train.step``         ``train_step``'s body, host dispatch only
 ``train.adam``         the optimizer update inside it
+``moe.route``          a dropless MoE layer's router, top k, balance loss
+                       and pair counts (``layers.moe_apply_dropless``)
+``moe.sync``           its host read of the held experts' pair counts
+``moe.experts``        its grouped product over the held experts' pairs
+``moe.shared``         its shared experts
 ``engine.save``        ``CheckpointEngine.save`` on the caller's thread
 ``engine.wait_snapshot``  the caller blocked on the snapshot
 ``engine.drain``       the caller blocked on every commit
